@@ -9,14 +9,19 @@ hand-written window-scan kernel) -> ``batch_search`` on the exact-graph
 route — and checks each result:
 
  1. device: the card's name and power limit;
- 2. build of the CUDA kernels from ``ngt_tpu_torch/csrc`` (plain nvcc);
+ 2. build of the CUDA kernels from ``ngt_tpu_torch/csrc`` (plain nvcc): its
+    ptxas registers, spills (any spill fails the run) and warnings, and the
+    scan's shared-memory plan;
  3. the window-scan kernel against its plain torch version at 65,536 x 128
-    with 1,024 queries, plus a masked case (scores to rtol 1e-4 / atol 1e-3,
-    ids on >= 99.9% of entries: the tolerances of tests/test_pallas_scan.py);
+    with 1,024 queries, a ragged case (100 queries, 37 windows) and a
+    masked case (scores to rtol 1e-4 / atol 1e-3, ids on >= 99.9% of
+    entries: the tolerances of tests/test_pallas_scan.py);
  4. the kernel's time at the main path's shape (4096 queries x the 2^20-row
     store), beside its bound, the plain version and a library yardstick,
     and the same comparison at that shape;
- 5. the 1M build, with the kernel's launch count on that path;
+ 5. the 1M build, with the kernel's launch count on that path and its phase
+    split (the build's NGT_TPU_BUILD_PROFILE marks, each closed by a
+    synchronize), and the kernel's share of the scan phase;
  6. build quality: the first edge_size_for_creation edges of 2,000 sampled
     rows against exact ground truth (>= 99% agreement) and ``verify``;
  7. search: at least SELF_HIT_FLOOR of 1,000 corpus rows find themselves
@@ -32,8 +37,10 @@ does a machine without a CUDA device.  Data is generated from a seed.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -102,6 +109,30 @@ def time_ms(fn, warm: int = 3, reps: int = 10) -> float:
     return float(np.median(times))
 
 
+def clocks_under(fn, launches: int = 1200) -> str:
+    """SM clock and board power sampled by nvidia-smi every 100 ms while
+    `fn` runs `launches` times back to back."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate()[0]
+    rows = [ln.split(",") for ln in out.strip().splitlines()]
+    rows = [r for r in rows
+            if len(r) == 2 and all(re.fullmatch(r"\s*[0-9.]+\s*", v) for v in r)]
+    if not rows:
+        return "no nvidia-smi samples"
+    clk = [float(c) for c, _ in rows]
+    pw = [float(w) for _, w in rows]
+    return (f"SM clock median {np.median(clk):.0f} MHz (min {min(clk):.0f}), board power "
+            f"median {np.median(pw):.1f} W (max {max(pw):.1f}) over {len(rows)} samples")
+
+
 def compare_scan(WS, q16, x16, ss, what: str) -> float:
     """Kernel vs plain on the same inputs; returns the max abs score error
     over unmasked entries, raises on disagreement."""
@@ -130,10 +161,11 @@ def library_scan(q16, x16, ss, chunk: int = 65536):
     return outs
 
 
-def drive(base: np.ndarray, held: np.ndarray, dev, kind: str) -> int:
+def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) -> int:
     """Phases 5-8 on `dev`: the main path (create, bulk build, search) and
     its checks.  Returns the window-scan launches of the main path."""
     import ngt_tpu_torch
+    from ngt_tpu_torch.graph import build as TB
     from ngt_tpu_torch.ops import bruteforce as BF
     from ngt_tpu_torch.ops import window_scan as WS
 
@@ -142,6 +174,7 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str) -> int:
     try:
         path = os.path.join(tmp, "index")
         # 5. the main path: build ...
+        os.environ["NGT_TPU_BUILD_PROFILE"] = "1"
         WS.window_scan.launches = 0
         t0 = time.time()
         idx = ngt_tpu_torch.create(path, dimension=base.shape[1],
@@ -149,10 +182,18 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str) -> int:
         idx.batch_insert(base, build=True)
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        build_launches = WS.window_scan.launches
+        del os.environ["NGT_TPU_BUILD_PROFILE"]
         log(f"build of {n_base} x {base.shape[1]}: {time.time() - t0:.1f} s on "
-            f"{kind}; window_scan launches {WS.window_scan.launches}")
-        if dev.type == "cuda" and WS.window_scan.launches == 0:
+            f"{kind}; window_scan launches {build_launches}")
+        if dev.type == "cuda" and build_launches == 0:
             raise AssertionError("the build never launched the window-scan kernel")
+        phases = dict(TB.last_profile)
+        log("build phases (s): " + ", ".join(
+            f"{label} {sec:.3f}" for label, sec in TB.last_profile))
+        log(f"window_scan share of the scan phase: {build_launches} x {scan_ms:.3f} ms "
+            f"= {build_launches * scan_ms / 1e3:.3f} s of {phases['scan']:.3f} s "
+            f"({100 * build_launches * scan_ms / 1e3 / phases['scan']:.1f}%)")
 
         # 6. build quality: the first k edges against exact k-NN
         k = idx.prop.edge_size_for_creation
@@ -235,8 +276,18 @@ def main() -> int:
     _build.load()
     log(f"kernel library ready in {time.time() - t0:.1f} s "
         f"(nvcc build {_build.build_info.get('seconds', 0.0):.1f} s)")
-    for line in _build.build_info.get("ptxas", []):
+    ptxas = _build.build_info.get("ptxas", [])
+    for line in ptxas:
         log(f"  ptxas: {line}")
+    spills = [ln for ln in ptxas
+              if any(int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
+    for d in (128, 256, 384, 512):
+        smem = ctypes.c_int(0)
+        stages = _build.load().ngt_window_scan_plan(d, ctypes.byref(smem))
+        log(f"  window_scan plan at d={d}: {stages} ring stages, "
+            f"{smem.value} bytes of shared memory")
 
     # 3. kernel vs plain, small shapes
     rng = np.random.default_rng(7)
@@ -245,6 +296,8 @@ def main() -> int:
         rng.standard_normal((1024, DIM)).astype(np.float32)).to(dev)
     ss = (xs * xs).sum(1)
     compare_scan(WS, qs.bfloat16(), xs.bfloat16(), ss, "65536 x 128, 1024 queries")
+    compare_scan(WS, qs[:100].bfloat16(), xs[:128 * 37].bfloat16(), ss[:128 * 37],
+                 "ragged: 100 queries, 37 windows")
     ss[:128] = float(WS.BIG)
     ss[130] = float(WS.BIG)
     wd, wi = WS.window_scan(qs.bfloat16(), xs.bfloat16(), ss)
@@ -283,10 +336,11 @@ def main() -> int:
     log(f"window_scan at 4096 x {cap} x {DIM} on {kind}: {ms:.3f} ms "
         f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} ms by {bound_by}, "
         f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms")
+    log("window_scan back to back: " + clocks_under(lambda: WS.window_scan(q16, x16, sp)))
     del x, v, x16, sp, q16
     torch.cuda.empty_cache()
 
-    launches = drive(base, held, dev, kind)
+    launches = drive(base, held, dev, kind, ms)
 
     # 9. kernels, device, result
     log(json.dumps({"kernels": [{

@@ -16,6 +16,10 @@ Queue 1, M11.
 
 from __future__ import annotations
 
+import os
+import sys
+import time
+
 import numpy as np
 import torch
 
@@ -34,6 +38,39 @@ INF = float("inf")
 #: expected edge loss is C(k+1,2)*128/n per row — negligible at >= 2^19
 #: rows, structurally wrong for small corpora
 WINDOW_SCAN_MIN_ROWS = 1 << 19
+
+
+#: phase times of the last ``build_bulk`` run with NGT_TPU_BUILD_PROFILE=1
+#: (the reference's switch): [(phase, seconds)], in order
+last_profile: list[tuple[str, float]] = []
+
+
+class _Marks:
+    """``mark(label)`` closes a build phase when NGT_TPU_BUILD_PROFILE=1 (the
+    reference's switch): it synchronizes the card, so each phase holds its
+    own device work, and appends the phase's seconds to ``last_profile``.
+    A no-op otherwise."""
+
+    def __init__(self, dev: torch.device):
+        self.on = os.environ.get("NGT_TPU_BUILD_PROFILE", "") == "1"
+        self.dev = dev
+        if self.on:
+            last_profile.clear()
+            self.t = time.perf_counter()
+
+    def __call__(self, label: str) -> None:
+        if not self.on:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        last_profile.append((label, now - self.t))
+        self.t = now
+
+    def report(self) -> None:
+        if self.on:
+            print("# build_bulk profile: " + " ".join(
+                f"{label}={sec:.2f}s" for label, sec in last_profile), file=sys.stderr)
 
 
 class DeviceMirror:
@@ -317,8 +354,10 @@ def build_bulk(
     if len(pending) == 0:
         return mirror
     dev = store.device
+    mark = _Marks(dev)
     x = torch.from_numpy(store._x).to(dev, copy=True)
     valid = torch.from_numpy(store._valid).to(dev, copy=True)
+    mark("upload")
     scan_impl = (
         "window"
         if cap >= WINDOW_SCAN_MIN_ROWS and x.is_cuda and store.d_pad <= WS.D_MAX
@@ -331,16 +370,20 @@ def build_bulk(
         pend, x, valid, D.sq_norms(x), k=k + 1, kc=2 * (k + 1),
         qblock=4096, scan_impl=scan_impl,
     )
+    mark("scan")
     reverse = prop.graph_type != GraphType.KNNG
     nbr_dev, nbrd_dev, deg_dev = _bulk_graph_rows(
         pend, ids, dists, e_max=graph.e_max, cap=cap, reverse=reverse,
     )
     del ids, dists
+    mark("rows")
     # fresh build: graph membership == store validity
     first_labels = _cc_labels_device(nbr_dev, valid).cpu().numpy() if reverse else None
+    mark("cc")
     graph._has_node[:] = False
     graph._has_node[pending] = True
     graph.defer_rows(nbr_dev, nbrd_dev, deg_dev, int(pending.max()) + 1)
+    mark("defer")
     if prop.truncation_threshold > 0:
         # exact rows: the tail IS the farthest edges; ensure_connected
         # keeps the cut-off targets reachable
@@ -349,13 +392,17 @@ def build_bulk(
         nbr_dev = first_labels = None
     live = np.nonzero(graph._has_node)[0].astype(np.int32)
     seeder.refresh(live, store._x, num_reps=default_reps(len(live)))
+    mark("seeds")
     if reverse:
         _, nbr_dev = ensure_connected(
             store, graph, seeder, store.metric, nbr_dev=nbr_dev,
             first_labels=first_labels,
         )
+    mark("connect")
     if nbr_dev is not None:
         mirror.adopt(x, nbr_dev)
     else:
         mirror.sync_full()
+    mark("mirror")
+    mark.report()
     return mirror

@@ -33,8 +33,9 @@ FLAGS = [
 LIB_NAME = "libngt_tpu_torch_kernels.so"
 
 _lib = None
-#: what the last build printed: {"seconds", "ptxas" (lines), "path"}; empty
-#: when the library was already built
+#: the library's build: {"seconds" (0.0 when it was already built), "ptxas"
+#: (the register, spill and warning lines nvcc printed, kept beside the
+#: library), "path"}
 build_info: dict = {}
 
 
@@ -60,6 +61,10 @@ def library_path() -> str:
         with open(path, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
+
+
+def _ptxas_path(lib: str) -> str:
+    return os.path.join(os.path.dirname(lib), "ptxas.txt")
 
 
 def _build(out: str) -> None:
@@ -88,15 +93,17 @@ def _build(out: str) -> None:
         )
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        ptxas = [
+            ln.strip() for log in logs for ln in log.splitlines()
+            if any(w in ln for w in ("registers", "Compiling entry", "spill", "warning"))
+        ]
+        with open(_ptxas_path(out), "w") as fh:
+            fh.write("\n".join(ptxas))
         os.replace(out + tag, out)
     finally:
         for path in objs + [out + tag]:
             if os.path.exists(path):
                 os.remove(path)
-    ptxas = [
-        ln.strip() for log in logs for ln in log.splitlines()
-        if "registers" in ln or "Compiling entry" in ln or "spill" in ln
-    ]
     build_info.update(seconds=time.time() - t0, ptxas=ptxas, path=out)
     logger.info("built %s in %.1f s", out, build_info["seconds"])
 
@@ -106,14 +113,21 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         out = library_path()
-        if not os.path.exists(out):
+        # the ptxas report is written before the library is moved into
+        # place: a library without one predates the report and is rebuilt
+        if not (os.path.exists(out) and os.path.exists(_ptxas_path(out))):
             _build(out)
+        else:
+            with open(_ptxas_path(out)) as fh:
+                build_info.update(seconds=0.0, ptxas=fh.read().splitlines(), path=out)
         lib = ctypes.CDLL(out)
         # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
         lib.ngt_window_scan.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         lib.ngt_window_scan.restype = ctypes.c_int
+        lib.ngt_window_scan_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.ngt_window_scan_plan.restype = ctypes.c_int
         lib.ngt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.ngt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -24,6 +24,8 @@ BIG = np.float32(1e30)
 WINDOW = 128
 #: row-width limit of the kernel's shared-memory plan (csrc/window_scan.cu)
 D_MAX = 512
+#: byte alignment TMA requires of every tensor the kernel reads
+ALIGN = 16
 
 
 def window_scan_plain(q16: torch.Tensor, x16: torch.Tensor, ss: torch.Tensor,
@@ -83,6 +85,11 @@ def window_scan(q16: torch.Tensor, x16: torch.Tensor, ss: torch.Tensor):
         )
     if not (q16.is_contiguous() and x16.is_contiguous() and ss.is_contiguous()):
         raise ValueError("window_scan: inputs must be contiguous")
+    for name, t in (("q", q16), ("x", x16), ("ss", ss)):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(
+                f"window_scan: {name} is not {ALIGN}-byte aligned (TMA needs it)"
+            )
     lib = _build.load()
     b, n = q16.shape[0], x16.shape[0]
     out_d = torch.empty((b, n // WINDOW), dtype=torch.float32, device=q16.device)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ngt_tpu_torch.ops import distances as D
+from ngt_tpu_torch.ops.select import topk_lex
 from ngt_tpu_torch.properties import DistanceType
 
 
@@ -109,8 +110,11 @@ class Seeder:
 
 
 def top_seeds(scores: torch.Tensor, s: int) -> torch.Tensor:
-    """Positions of the min(s, reps) lowest seed scores per row.  Ties keep
-    no particular order: the chosen ids are re-scored exactly and the pool
-    sorts on (dist, id), so only an exact tie between two different ids at
-    the s-th place could change a search."""
-    return torch.topk(scores, min(s, scores.shape[1]), dim=1, largest=False).indices
+    """Positions of the min(s, reps) lowest seed scores per row, ascending,
+    ties to the lower position: the order the reference's top-k gives
+    (``approx_max_k`` lowers to an exact top-k on the CPU).  ``torch.topk``
+    leaves the order of ties open, so the selection runs on (score,
+    position) keys."""
+    pos = torch.arange(scores.shape[1], dtype=torch.int32, device=scores.device)
+    _, idx = topk_lex(scores, pos.expand_as(scores), min(s, scores.shape[1]))
+    return idx.to(torch.int64)

@@ -99,3 +99,29 @@ def test_cc_labels_are_component_minima():
     valid[0] = False
     lab = TB._cc_labels_device(torch.from_numpy(nbr), torch.from_numpy(valid)).numpy()
     np.testing.assert_array_equal(lab, [9, 1, 1, 1, 4, 4, 6, 7, 7])
+
+
+def test_build_profile_marks_the_reference_phases(monkeypatch, capsys):
+    """NGT_TPU_BUILD_PROFILE=1 (the reference's switch) splits the port's
+    bulk build into the reference's phases, in the reference's order, and
+    leaves the graph as it is without the switch."""
+    rng = np.random.default_rng(8)
+    data = rng.standard_normal((600, 32)).astype(np.float32)
+    plain = ngt_tpu_torch.create(None, dimension=32, device="cpu")
+    plain.batch_insert(data, build=True)
+    monkeypatch.setenv("NGT_TPU_BUILD_PROFILE", "1")
+    capsys.readouterr()
+    j = ngt_tpu.create(None, dimension=32)
+    j.batch_insert(data, build=True)
+    t = ngt_tpu_torch.create(None, dimension=32, device="cpu")
+    t.batch_insert(data, build=True)
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if ln.startswith("# build_bulk profile: ")]
+    assert len(lines) == 2
+    j_labels, t_labels = (
+        [part.split("=")[0] for part in ln.split(": ", 1)[1].split()] for ln in lines
+    )
+    assert t_labels == j_labels
+    assert [label for label, _ in TB.last_profile] == t_labels
+    assert all(sec >= 0.0 for _, sec in TB.last_profile)
+    np.testing.assert_array_equal(t.graph.nbr_ids[:601], plain.graph.nbr_ids[:601])

@@ -107,3 +107,32 @@ def test_seeder_matches_jax():
         ts.seeds_for(torch.from_numpy(q)).numpy(), np.asarray(js.seeds_for(jnp.asarray(q)))
     )
     assert ts.verify(np.ones(3000, bool), x) == []
+
+
+def test_seeder_ties_match_jax():
+    """Representatives with identical rows tie exactly at the s-th place:
+    both packages must pick the lower position (the reference's top-k order
+    of ties), so the seed ids are equal.  Each twin pair holds the higher
+    object id at the lower position, so position order is not id order."""
+    from ngt_tpu.seeds import Seeder as JSeeder
+    from ngt_tpu_torch.seeds import Seeder as TSeeder
+
+    rng = np.random.default_rng(12)
+    half = 64
+    x = np.zeros((2 * half + 1, 128), np.float32)
+    x[1 : half + 1, :16] = rng.standard_normal((half, 16))
+    x[half + 1 :] = x[1 : half + 1]                  # object i + half twins i
+    reps = np.concatenate([np.arange(half + 1, 2 * half + 1), np.arange(1, half + 1)])
+    q = np.zeros((32, 128), np.float32)
+    q[:, :16] = x[rng.integers(1, half + 1, 32), :16] + 0.05 * rng.standard_normal((32, 16))
+    js = JSeeder(ngt_tpu.DistanceType.L2)
+    ts = TSeeder(DistanceType.L2, device="cpu")
+    js.set_representatives(reps.astype(np.int32), x)
+    ts.set_representatives(reps.astype(np.int32), x)
+    for s in (9, 7):                                 # the s-th place splits a twin pair
+        jid = np.asarray(js.seeds_for(jnp.asarray(q), s))
+        tid = ts.seeds_for(torch.from_numpy(q), s).numpy()
+        np.testing.assert_array_equal(tid, jid)
+        # the tie really is at the s-th place: the next seed is the twin
+        nxt = ts.seeds_for(torch.from_numpy(q), s + 1).numpy()[:, -1]
+        assert (np.abs(nxt - tid[:, -1]) == half).all()
