@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path at 1M x 128 float32 — ``create`` ->
-``batch_insert(build=True)`` (the bulk build, whose candidate scan runs the
-hand-written window-scan kernel) -> ``batch_search`` on the exact-graph
-route — and checks each result:
+Drives the port's main path at 1M x 128 float32 — ``create`` with default
+properties -> ``batch_insert(build=True)`` (the bulk build, whose candidate
+scan runs the hand-written window-scan kernel) -> ``batch_search``, which
+takes the quantized-graph (qg) route at this size — then the exact-graph
+route on the same index, and checks each result:
 
  1. device: the card's name and power limit;
  2. build of the CUDA kernels from ``ngt_tpu_torch/csrc`` (plain nvcc): its
@@ -24,10 +25,24 @@ route — and checks each result:
     synchronize), and the kernel's share of the scan phase;
  6. build quality: the first edge_size_for_creation edges of 2,000 sampled
     rows against exact ground truth (>= 99% agreement) and ``verify``;
- 7. search: at least SELF_HIT_FLOOR of 1,000 corpus rows find themselves
-    first; recall@10 of 10,000 held-out queries at epsilon 0.1 above
-    RECALL_FLOOR, and queries/s;
- 8. save + open_index: the self-queries return identical ids.
+ 7. the qg route of default properties: the first call of the 10,000
+    held-out queries at epsilon 0.1 with NGT_TPU_QG_PROFILE=1, split by
+    stage (quantize, block gather, seeds, traversal with its steps and its
+    share of done-check waits, re-rank, tail refine);
+    the route is sq8 with 48-edge blocks; recall@10 of a second call above
+    QG_RECALL_FLOOR, and queries/s; the same call in one chunk: identical
+    ids, and its queries/s; 1,000 self-queries; save and open through
+    ``QuantizedGraphIndex``: identical ids;
+ 8. the exact route on the same index (``search_mode="exact"``): at least
+    SELF_HIT_FLOOR of the 1,000 corpus rows find themselves first;
+    recall@10 of the held-out queries above RECALL_FLOOR, and queries/s;
+ 9. save + open_index: the self-queries return identical ids;
+10. the u8-exact arm: the proxy scaled and rounded to integers in 0..255,
+    built and searched with default properties: the codes are the u8
+    mirror tensor itself at scale 1.0, recall@10 above QG_RECALL_FLOOR;
+11. card against CPU: the qg route at 8,192 rows on the card and on the
+    CPU over one graph, in the exact and the lossy visited regime: codes
+    equal, ids on >= 99.9% of entries.
 
 It prints a few dozen short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
@@ -63,13 +78,21 @@ RECALL_FLOOR = 0.97
 #: and the exact k-NN graph rarely leads into it from another cluster.  The
 #: JAX package misses the same rows on the same data (PERF.md).
 SELF_HIT_FLOOR = 0.99
+#: recall@10 floor of the same queries on the quantized-graph route that
+#: default properties take (the sq8 and the u8-exact arm): the first H100
+#: run measured 0.9874 (sq8) and 0.9883 (u8); the floor sits 1.24 points
+#: below the lower (PERF.md)
+QG_RECALL_FLOOR = 0.975
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM bytes/s
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
+_T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.time() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def sift_proxy(n: int, d: int = DIM, seed: int = SEED, kc: int = 2048) -> np.ndarray:
@@ -161,13 +184,81 @@ def library_scan(q16, x16, ss, chunk: int = 65536):
     return outs
 
 
+def qg_split(wall_s: float, n_chunks: int) -> None:
+    """Print where the time of one qg call made with NGT_TPU_QG_PROFILE=1
+    went: seconds per stage (quant/qgraph.py ``last_profile``, each stage
+    closed by a synchronize) and the traversal's steps and done-check
+    waits (graph/search.py counters)."""
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.quant import qgraph as QG
+
+    for label in ("quantize", "blocks", "seeds", "traverse", "rerank", "refine"):
+        sec = QG.last_profile.get(label)
+        log(f"  {label}: " + ("not run" if sec is None else
+                              f"{sec * 1e3:.1f} ms ({100 * sec / wall_s:.1f}% of the call)"))
+    trav = QG.last_profile.get("traverse", 0.0)
+    log(f"  traversal: {graph_search.steps} steps over {n_chunks} chunks "
+        f"({1e3 * trav / max(graph_search.steps, 1):.3f} ms a step); the done checks "
+        f"wait {graph_search.wait_s * 1e3:.1f} ms of its {trav * 1e3:.1f} ms "
+        f"({100 * graph_search.wait_s / max(trav, 1e-9):.1f}%)")
+
+
+def self_queries(search, base, sel, what: str) -> np.ndarray:
+    ids, _ = search(base[sel])
+    hits = int((ids[:, 0] == sel).sum())
+    log(f"{what} self-queries: {hits} of {len(sel)} return themselves first")
+    return ids
+
+
+def recall_run(search, held, gt, what: str, kind: str):
+    """One timed batch of the held-out queries; returns recall@10 and the
+    ids found."""
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.ops import bruteforce as BF
+
+    graph_search.steps = 0
+    t0 = time.time()
+    found, _ = search(held)
+    secs = time.time() - t0
+    rec = BF.recall_at_k(found, gt, 10)
+    log(f"{what}: recall@10 {rec:.4f} at epsilon 0.1, {len(held) / secs:.0f} queries/s "
+        f"({len(held)} in {secs:.2f} s, {graph_search.steps} steps) on {kind}")
+    return rec, found
+
+
+def ground_truth(idx, held: np.ndarray) -> np.ndarray:
+    return np.concatenate([
+        idx.batch_linear_search(held[i : i + 2000], size=10)[0]
+        for i in range(0, len(held), 2000)
+    ])
+
+
+def check_qg_route(idx, codes_dtype) -> None:
+    """The index served its last search through the quantized graph, sq8
+    codes of ``codes_dtype`` with 48-edge blocks (the 6 GiB budget at a
+    2^20-row capacity)."""
+    qg = idx._qg
+    if qg is None or qg.mode != "sq8":
+        raise AssertionError("the default-properties search did not take the sq8 qg route")
+    eb = qg._dev_blocks()[1].shape[1]
+    log(f"qg route: mode {qg.mode}, codes {str(qg._dev_codes().dtype)}, scale "
+        f"{qg.sq_scale!r}, eb {eb} of {idx.graph.e_max}, refine "
+        f"{qg._resolve_refine(idx.graph.e_max, eb)}")
+    if eb != 48 or qg._dev_codes().dtype != codes_dtype:
+        raise AssertionError(f"qg route took eb {eb}, codes {qg._dev_codes().dtype}")
+
+
 def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) -> int:
-    """Phases 5-8 on `dev`: the main path (create, bulk build, search) and
-    its checks.  Returns the window-scan launches of the main path."""
+    """Phases 5-9 on `dev`: the main path (create with default properties,
+    bulk build, search on the qg route, then the exact route on the same
+    index) and its checks.  Returns the window-scan launches of the main
+    path."""
     import ngt_tpu_torch
     from ngt_tpu_torch.graph import build as TB
-    from ngt_tpu_torch.ops import bruteforce as BF
     from ngt_tpu_torch.ops import window_scan as WS
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.quant import qgraph as QG
+    from ngt_tpu_torch.quant.qgraph import QuantizedGraphIndex
 
     n_base, n_held = len(base), len(held)
     tmp = tempfile.mkdtemp(prefix="ngt_tpu_torch_smoke_")
@@ -177,8 +268,7 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) ->
         os.environ["NGT_TPU_BUILD_PROFILE"] = "1"
         WS.window_scan.launches = 0
         t0 = time.time()
-        idx = ngt_tpu_torch.create(path, dimension=base.shape[1],
-                                   search_mode="exact", device=dev)
+        idx = ngt_tpu_torch.create(path, dimension=base.shape[1], device=dev)
         idx.batch_insert(base, build=True)
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -211,30 +301,71 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) ->
         problems = idx.verify()
         if problems:
             raise AssertionError(f"verify: {problems}")
-
-        # 7. ... and search
+        gt = ground_truth(idx, held)
         sel = np.random.default_rng(1).choice(n_base, min(1000, n_base), replace=False)
-        self_ids, _ = idx.batch_search(base[sel], size=10)
+
+        # 7. default properties: the quantized-graph route.  The first call
+        # quantizes and gathers the blocks; it runs with the stage timer on
+        os.environ["NGT_TPU_QG_PROFILE"] = "1"
+        QG.last_profile.clear()
+        graph_search.steps, graph_search.wait_s = 0, 0.0
+        t0 = time.time()
+        idx.batch_search(held, size=10, epsilon=0.1)
+        first_s = time.time() - t0
+        del os.environ["NGT_TPU_QG_PROFILE"]
+        log(f"qg route, first call of {n_held} queries (quantize + blocks + search, "
+            f"a synchronize closing each stage): {first_s:.2f} s; where the time went:")
+        qg_split(first_s, -(-n_held // 512))
+        log(f"device memory after the first qg call: {torch.cuda.memory_allocated() / 2**30:.2f} "
+            f"GiB allocated (mirror, adjacency, codes, blocks and the store's linear-search "
+            f"copy), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check_qg_route(idx, torch.int8)
+        rec, found = recall_run(lambda q: idx.batch_search(q, size=10, epsilon=0.1),
+                                held, gt, "qg route", kind)
+        if rec < QG_RECALL_FLOOR:
+            raise AssertionError(f"qg recall@10 {rec:.4f} below {QG_RECALL_FLOOR}")
+        # the same call in one chunk: the ids must not change, and the time
+        # shows what the 512-query chunks cost
+        os.environ["NGT_TPU_QG_CHUNK"] = str(n_held)
+        graph_search.steps = 0
+        t0 = time.time()
+        whole = idx.batch_search(held, size=10, epsilon=0.1)[0]
+        secs = time.time() - t0
+        del os.environ["NGT_TPU_QG_CHUNK"]
+        log(f"qg route in one chunk of {n_held}: {n_held / secs:.0f} queries/s "
+            f"({secs:.2f} s, {graph_search.steps} steps); ids identical to the "
+            f"512-query chunks: {bool(np.array_equal(whole, found))}")
+        if not np.array_equal(whole, found):
+            raise AssertionError("qg results depend on the chunking")
+        qg_self = self_queries(lambda q: idx.batch_search(q, size=10), base, sel, "qg route")
+        qg = idx._qg
+        t0 = time.time()
+        qg.save()
+        qg2 = QuantizedGraphIndex.open(path, device=dev)
+        mine = qg.batch_search(base[sel], size=10, epsilon=0.1)[0]
+        again = qg2.batch_search(base[sel], size=10, epsilon=0.1)[0]
+        same = bool(np.array_equal(again, mine))
+        log(f"qg save + open + search: {time.time() - t0:.1f} s; identical ids: {same}")
+        if not same or not np.array_equal(mine, qg_self):
+            raise AssertionError("qg results changed across QuantizedGraphIndex.save/open")
+        qg2.index.close()
+        del qg, qg2
+
+        # 8. the exact route on the same index
+        idx.prop.search_mode = "exact"
+        self_ids = self_queries(lambda q: idx.batch_search(q, size=10), base, sel,
+                                "exact route")
         hits = int((self_ids[:, 0] == sel).sum())
-        log(f"self-queries: {hits} of {len(sel)} return themselves first "
-            f"(floor {SELF_HIT_FLOOR})")
         if hits < SELF_HIT_FLOOR * len(sel):
             raise AssertionError(f"only {hits} of {len(sel)} corpus rows found themselves")
-        t0 = time.time()
-        found, _ = idx.batch_search(held, size=10, epsilon=0.1)
-        search_s = time.time() - t0
-        launches = WS.window_scan.launches
-        gt = np.concatenate([
-            idx.batch_linear_search(held[i : i + 2000], size=10)[0]
-            for i in range(0, n_held, 2000)
-        ])
-        rec = BF.recall_at_k(found, gt, 10)
-        log(f"search: recall@10 {rec:.4f} (floor {RECALL_FLOOR}) at epsilon 0.1, "
-            f"{n_held / search_s:.0f} queries/s ({n_held} in {search_s:.2f} s) on {kind}")
+        rec, _ = recall_run(lambda q: idx.batch_search(q, size=10, epsilon=0.1), held, gt,
+                            "exact route", kind)
         if rec < RECALL_FLOOR:
             raise AssertionError(f"recall@10 {rec:.4f} below {RECALL_FLOOR}")
+        launches = WS.window_scan.launches
 
-        # 8. save and open
+        # 9. save and open
         t0 = time.time()
         idx.save()
         idx.close()
@@ -248,6 +379,77 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) ->
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
+
+
+def u8_arm(allx: np.ndarray, dev, kind: str) -> int:
+    """Phase 10: the proxy scaled and rounded to integers in 0..255, built
+    and searched with default properties: the narrow mirror is u8, the codes
+    ARE that tensor (scale 1.0), recall at the qg floor.  Returns the
+    arm's window-scan launches."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.ops import window_scan as WS
+
+    u = np.rint(allx * np.float32(255.0 / float(allx.max()))).astype(np.float32)
+    base, held = u[:N_BASE], u[N_BASE:]
+    WS.window_scan.launches = 0
+    t0 = time.time()
+    idx = ngt_tpu_torch.create(None, dimension=DIM, device=dev)
+    idx.batch_insert(base, build=True)
+    torch.cuda.synchronize()
+    log(f"u8 arm: build of {len(base)} x {DIM} integers in 0..255: {time.time() - t0:.1f} s")
+    gt = ground_truth(idx, held)
+    t0 = time.time()
+    idx.batch_search(held[:512], size=10, epsilon=0.1)
+    torch.cuda.synchronize()
+    log(f"u8 arm: first call (codes + blocks + 512 queries) {time.time() - t0:.2f} s")
+    check_qg_route(idx, torch.uint8)
+    qg, mirror = idx._qg, idx._mirror
+    shares = (qg._dev_codes().untyped_storage().data_ptr()
+              == mirror.x.untyped_storage().data_ptr())
+    log(f"u8 arm: codes share the mirror's storage: {shares}; sq_scale {qg.sq_scale!r}")
+    if not shares or qg.sq_scale != 1.0:
+        raise AssertionError("u8-exact codes are not the mirror tensor at scale 1.0")
+    rec, _ = recall_run(lambda q: idx.batch_search(q, size=10, epsilon=0.1), held, gt,
+                        "u8 arm, qg route", kind)
+    if rec < QG_RECALL_FLOOR:
+        raise AssertionError(f"u8 qg recall@10 {rec:.4f} below {QG_RECALL_FLOOR}")
+    launches = WS.window_scan.launches
+    if launches == 0:
+        raise AssertionError("the u8 build never launched the window-scan kernel")
+    idx.close()
+    return launches
+
+
+def card_vs_cpu(dev, n: int = 8192, nq: int = 1000) -> None:
+    """Phase 11: the qg route on the card and on the CPU over one graph
+    (built on the card, carried to the CPU by convert.py), in the exact and
+    the lossy visited regime: codes and scale equal exactly, ids on
+    >= 99.9% of entries (only the float reduction order differs)."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch import convert
+
+    x = sift_proxy(n + nq, seed=SEED + 1, kc=64)
+    card = ngt_tpu_torch.create(None, dimension=DIM, device=dev, search_mode="qg")
+    card.batch_insert(x[:n], build=True)
+    cpu = convert.from_ngt_tpu_arrays(device="cpu", **convert.to_numpy_state(card))
+    q = x[n:]
+    for bits in (0, 10):
+        card.prop.visited_bits_log2 = cpu.prop.visited_bits_log2 = bits
+        gi, gd = card.batch_search(q, size=10, epsilon=0.1)
+        ci, cd = cpu.batch_search(q, size=10, epsilon=0.1)
+        # the converted index holds exactly its rows, the built one 2^k
+        codes_same = bool(np.array_equal(card._qg._host_codes()[: n + 1],
+                                         cpu._qg._host_codes()[: n + 1]))
+        same = gi == ci
+        regime = "lossy" if bits else "exact"
+        log(f"card vs CPU, qg route at {n} rows, {regime} visited table: ids agree on "
+            f"{same.mean():.6f} of entries, {same.all(1).mean():.4f} of queries wholly; "
+            f"codes equal {codes_same}, scale equal {card._qg.sq_scale == cpu._qg.sq_scale}")
+        if same.mean() < 0.999 or not codes_same or card._qg.sq_scale != cpu._qg.sq_scale:
+            raise AssertionError(f"card and CPU disagree on the qg route ({regime})")
+        if not np.allclose(gd[same], cd[same], rtol=1e-5):
+            raise AssertionError("card and CPU distances differ")
+    card.close()
 
 
 def main() -> int:
@@ -341,9 +543,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = drive(base, held, dev, kind, ms)
+    torch.cuda.empty_cache()
+    u8_launches = u8_arm(allx, dev, kind)
+    log(f"window_scan launches: {launches} on the main path, {u8_launches} in the u8 arm")
+    del allx, base, held
+    torch.cuda.empty_cache()
+    card_vs_cpu(dev)
 
-    # 9. kernels, device, result
-    log(json.dumps({"kernels": [{
+    # 12. kernels, device, result
+    # the last three lines go out bare: the kernels line, the nvidia-smi
+    # line and the result line are read by machines
+    log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": [{
         "name": "window_scan",
         "route": "cuda",
         "source": "ngt_tpu_torch/csrc/window_scan.cu",
@@ -357,9 +568,8 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": library_ms,
     }]}))
-    log(f"total {time.time() - t_start:.1f} s")
-    log(smi)
-    log(json.dumps({"ok": True, "device": {
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -1,7 +1,8 @@
 """Carry an index's state between the JAX package and the port as numpy
 arrays — the arrays of ``VectorStore.state_dict``, ``GraphStore.state_dict``
-and ``Seeder.rep_ids`` plus the property fields.  Tests use it to give both
-packages the same graph.
+and ``Seeder.rep_ids`` plus the property fields, and a quantized graph's
+codes, mode, scale and block width.  Tests use it to give both packages
+the same graph and the same codes.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import numpy as np
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.index import Index
 from ngt_tpu_torch.properties import Property
+from ngt_tpu_torch.quant.qgraph import QuantizedGraphIndex
 from ngt_tpu_torch.store import VectorStore
 
 
@@ -71,3 +73,16 @@ def to_numpy_state(index: Index) -> dict:
         "degree": gs["degree"], "has_node": gs["has_node"],
         "rep_ids": index.seeder.rep_ids, "prop_dict": prop,
     }
+
+
+def qg_from_ngt_tpu_state(index: Index, mode: str, sq_scale: float, codes,
+                          block_edges: int = 0) -> QuantizedGraphIndex:
+    """A port ``QuantizedGraphIndex`` over ``index`` holding a reference
+    quantized graph's state: its ``mode``, ``sq_scale``, codes as numpy
+    ([n or cap, d_pad] int8, or uint8 for u8-exact codes; padded to the
+    store's capacity here) and ``block_edges``."""
+    codes = np.asarray(codes)
+    full = np.zeros((index.store._x.shape[0], codes.shape[1]), codes.dtype)
+    full[: codes.shape[0]] = codes
+    return QuantizedGraphIndex(index, full, mode=mode, sq_scale=sq_scale,
+                               block_edges=block_edges)

@@ -27,9 +27,10 @@ from ngt_tpu_torch.graph.storage import GraphStore, merge_edge_rows
 from ngt_tpu_torch.ops import bruteforce as BF
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops import window_scan as WS
-from ngt_tpu_torch.properties import GraphType, Property
+from ngt_tpu_torch.properties import DistanceType, GraphType, Property
 from ngt_tpu_torch.seeds import Seeder, default_reps
 from ngt_tpu_torch.store import VectorStore
+from ngt_tpu_torch.utils import narrow_host
 
 INF = float("inf")
 
@@ -73,38 +74,85 @@ class _Marks:
                 f"{label}={sec:.2f}s" for label, sec in last_profile), file=sys.stderr)
 
 
+#: metrics whose scaled-L2 ranking over the stored vectors is monotone with
+#: the metric (normalized metrics store unit vectors: L2^2 = 2 - 2cos; the
+#: plain angular ones qualify because the sq8 codes are built from
+#: row-normalized vectors); the quantized-graph route serves only these
+_SQ8_METRICS = (
+    DistanceType.L2,
+    DistanceType.NORMALIZED_L2,
+    DistanceType.NORMALIZED_COSINE,
+    DistanceType.NORMALIZED_ANGLE,
+    DistanceType.COSINE,
+    DistanceType.ANGLE,
+)
+
+
+def _narrow_enabled() -> bool:
+    """The reference's NGT_TPU_MIRROR_NARROW switch: "0" keeps the search
+    mirror in f32."""
+    return os.environ.get("NGT_TPU_MIRROR_NARROW", "1") != "0"
+
+
+def _upload(xh: np.ndarray, dev: torch.device, narrow: bool) -> torch.Tensor:
+    """A device copy of the object matrix, in the narrowest lossless dtype
+    when ``narrow`` (u8 for an integral corpus: 4x less memory and gather
+    traffic per hop; every distance casts to f32, so results are equal)."""
+    return torch.from_numpy(narrow_host(xh) if narrow else xh).to(dev, copy=True)
+
+
 class DeviceMirror:
     """Device copies of the object matrix and adjacency that the search
-    reads (x [cap, d_pad] f32, valid [cap] bool, nbr [cap, e_max] int32)."""
+    reads (x [cap, d_pad] in the narrowest lossless dtype, valid [cap]
+    bool, nbr [cap, e_max] int32)."""
+
+    #: process-wide: a replaced mirror never repeats a version that an old
+    #: mirror handed out
+    _version_seed = 0
 
     def __init__(self, store: VectorStore, graph: GraphStore):
         self.store = store
         self.graph = graph
         self.x = self.valid = self.nbr = None
         self.capacity = 0
+        #: bumped on every array replacement; derived caches (the quantized
+        #: graph's neighbor blocks) key on it, not on id(self.nbr), which
+        #: CPython may reuse once the old tensor is freed
+        DeviceMirror._version_seed += 1_000_000
+        self.version = DeviceMirror._version_seed
 
     def _search_valid(self) -> np.ndarray:
         # a search may only return indexed objects: live AND graph node
         cap = self.store._x.shape[0]
         return self.store._valid[:cap] & self.graph._has_node[:cap]
 
+    def drop(self) -> None:
+        """Forget the device arrays (stale once the graph changes)."""
+        self.x = self.valid = self.nbr = None
+        self.capacity = 0
+        self.version += 1
+
     def sync_full(self) -> None:
         cap = self.store._x.shape[0]
         dev = self.store.device
         self.graph.ensure_capacity(cap)
-        self.x = torch.from_numpy(self.store._x).to(dev, copy=True)
+        self.x = _upload(self.store._x, dev, _narrow_enabled())
         self.valid = torch.from_numpy(self._search_valid()).to(dev)
         self.nbr = torch.from_numpy(self.graph.nbr_ids[:cap]).to(dev, copy=True)
         self.capacity = cap
+        self.version += 1
 
-    def adopt(self, x: torch.Tensor, nbr: torch.Tensor) -> None:
+    def adopt(self, x: torch.Tensor, nbr: torch.Tensor,
+              x_narrow: torch.Tensor | None = None) -> None:
         """Take the bulk build's device-resident arrays instead of
-        uploading them again."""
+        uploading them again; the build's narrow copy ``x_narrow`` when it
+        kept one, else its f32 working copy ``x``."""
         self.graph.ensure_capacity(self.store._x.shape[0])
-        self.x = x
+        self.x = x_narrow if x_narrow is not None and _narrow_enabled() else x
         self.nbr = nbr
         self.valid = torch.from_numpy(self._search_valid()).to(self.store.device)
         self.capacity = self.store._x.shape[0]
+        self.version += 1
 
 
 def _dist_bits(d: torch.Tensor) -> torch.Tensor:
@@ -349,13 +397,15 @@ def build_bulk(
     graph.ensure_capacity(cap)
     if mirror is None:
         mirror = DeviceMirror(store, graph)
-    mirror.x = mirror.valid = mirror.nbr = None  # stale once the graph changes
-    mirror.capacity = 0
+    mirror.drop()
     if len(pending) == 0:
         return mirror
     dev = store.device
     mark = _Marks(dev)
-    x = torch.from_numpy(store._x).to(dev, copy=True)
+    # the narrow upload is what the search mirror adopts; the scan holds a
+    # widened f32 working copy
+    x_narrow = _upload(store._x, dev, narrow=True)
+    x = x_narrow if x_narrow.dtype == torch.float32 else x_narrow.to(torch.float32)
     valid = torch.from_numpy(store._valid).to(dev, copy=True)
     mark("upload")
     scan_impl = (
@@ -400,7 +450,7 @@ def build_bulk(
         )
     mark("connect")
     if nbr_dev is not None:
-        mirror.adopt(x, nbr_dev)
+        mirror.adopt(x, nbr_dev, x_narrow=x_narrow)
     else:
         mirror.sync_full()
     mark("mirror")

@@ -15,13 +15,16 @@
 
 The loop is a Python loop over steps; each step is a handful of batched
 tensor ops and the loop ends at ``max_iters`` or when every query is done,
-which it checks once per step.  Row mode with one expansion per step (the
-reference's order); block mode and ``expand > 1`` wait for ROADMAP M6/M9.
+which it checks once per step (the check waits for the device; the
+function counts its steps and the seconds of those waits).  Row mode
+scores gathered object rows; block mode scores one neighbor block row per
+expanded node, the quantized graph's traversal (``quant/qgraph.py``).
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -78,7 +81,7 @@ def _hash_slots(ids: torch.Tensor, hash_bits: int, exact: bool):
 
 
 def graph_search(
-    x: torch.Tensor,         # [N_pad, D_pad] object rows
+    x: torch.Tensor,         # [N_pad, D_pad] object rows, or block rows
     nbr: torch.Tensor,       # [N_pad, E_max] int32 adjacency, -1 padded
     valid: torch.Tensor,     # [N_pad] bool — searchable objects
     queries: torch.Tensor,   # [B, D_pad] prepared queries
@@ -86,6 +89,7 @@ def graph_search(
     *,
     metric,
     k: int,
+    k_radius: int = 0,
     epsilon: float = DEFAULT_EPSILON,
     radius: float = INF,
     width: int = 64,
@@ -93,36 +97,54 @@ def graph_search(
     max_iters: int = 0,
     hash_bits: int = 16,
     exact_hash: bool = False,
+    expand: int = 1,
+    scorer=None,
+    block_mode: bool = False,
+    seed_x: torch.Tensor | None = None,
 ) -> SearchResult:
-    """One batched k-NN search over a fixed proximity graph; ``edge_size``
-    (0 = all) limits the edges read per expansion (Graph.h:675-692)."""
+    """One batched k-NN search over a fixed proximity graph.
+
+    * ``edge_size`` (0 = all) limits the edges read per expansion
+      (Graph.h:675-692);
+    * ``k_radius`` (0 = k) is the pool rank that drives the radius rule:
+      below k the search explores with the tighter radius and the other
+      candidates ride along in the pool (the quantized graph's result
+      expansion);
+    * ``expand`` > 1 expands that many candidates per step: fewer steps,
+      more distance computations;
+    * ``scorer(queries, rows) -> [B, E]`` replaces the metric distance;
+    * ``block_mode``: ``x`` holds one block row [E_max * M] per node, the
+      codes of its neighbors in adjacency order, so one row read per
+      expanded node scores all its neighbors (the reference's QuantizedNode
+      stream, QuantizedGraph.h:64-115); seeds are then scored from the
+      per-object rows ``seed_x``."""
     n_pad, e_max = nbr.shape
     b = queries.shape[0]
     dev = queries.device
     e = edge_size if 0 < edge_size < e_max else e_max
     w = max(width, k)
     s = seed_ids.shape[1]
+    p = max(int(expand), 1)
     if max_iters <= 0:
         base = max(512, 4 * w + 32 * k)
         scale = max(float(n_pad) / 65536.0, 1.0)
         max_iters = int(base * (1.0 + math.log2(scale) / 2.0))
+    kr = k_radius if 0 < k_radius <= k else k
     eps_coeff = torch.tensor(1.0, dtype=_F32) + torch.tensor(epsilon, dtype=_F32)
     radius0 = torch.full((b,), radius, dtype=_F32, device=dev)
     bits = torch.from_numpy(_BITS).to(dev)
     rows = torch.arange(b, device=dev)
+    if scorer is None:
+        def scorer(qs, xs):
+            return D.gathered(metric, qs, xs)
 
     # ---- seed scoring (reference setupSeeds, Graph.cpp:243-394)
     seed64 = seed_ids.to(torch.int64)
     seed_safe = seed64.clamp(0, n_pad - 1)
-    seed_d = D.gathered(metric, queries, x[seed_safe])
+    seed_d = scorer(queries, (seed_x if block_mode else x)[seed_safe])
     seed_d = torch.where((seed64 >= 0) & valid[seed_safe], seed_d, INF)
     # a repeated seed id keeps its first occurrence only
-    srt, order = torch.sort(seed64, dim=1, stable=True)
-    dup = torch.cat(
-        [torch.zeros((b, 1), dtype=torch.bool, device=dev), srt[:, 1:] == srt[:, :-1]], 1
-    )
-    dup = torch.zeros_like(dup).scatter(1, order, dup)
-    seed_d = torch.where(dup, INF, seed_d)
+    seed_d = torch.where(_repeats(seed64), INF, seed_d)
     seed_i = torch.where(torch.isinf(seed_d), -1, seed_ids.to(torch.int32))
 
     # ---- initial pool: seeds sorted on (dist, id), padded/cut to width W
@@ -137,29 +159,43 @@ def graph_search(
     done = ~(pool_i >= 0).any(1)
     vc = torch.zeros((b,), dtype=torch.int32, device=dev)
     dc = torch.zeros((b,), dtype=torch.int32, device=dev)
-    rank_ge_k = (torch.arange(w, device=dev) >= k)[None, :]
+    pos = torch.arange(w, device=dev)
+    rank_ge_k = (pos >= k)[None, :]
     nbr_e = nbr[:, :e]
 
     it = 0
-    while it < max_iters and not bool(done.all()):
-        # explorationRadius (Graph.cpp:525): ε-scaled k-th pool distance
-        er = torch.minimum(pool_d[:, k - 1], radius0) * eps_coeff
+    while it < max_iters:
+        t_wait = time.perf_counter()
+        all_done = bool(done.all())
+        graph_search.wait_s += time.perf_counter() - t_wait
+        if all_done:
+            break
+        # explorationRadius (Graph.cpp:525): ε-scaled kr-th pool distance
+        er = torch.minimum(pool_d[:, kr - 1], radius0) * eps_coeff
 
         cand = ~pool_e & (pool_i >= 0) & (pool_d <= er[:, None])
         done = done | ~cand.any(1)
-        # the best unexpanded candidate (first in pool order)
-        cur = cand.to(torch.uint8).argmax(1)
-        sel_ok = cand[rows, cur] & ~done
-        cur_id = pool_i[rows, cur].to(torch.int64).clamp(0, n_pad - 1)
+        # the p best unexpanded candidates in pool order (p = 1 is the
+        # reference's one pop per step); past the candidates, the lowest
+        # other positions, unselected
+        if p == 1:
+            cur = cand.to(torch.uint8).argmax(1, keepdim=True)
+        else:
+            key = torch.where(cand, pos, w + pos)
+            cur = torch.topk(key, p, dim=1, largest=False, sorted=True).indices
+        sel_ok = cand.gather(1, cur) & ~done[:, None]               # [B, p]
+        cur_id = pool_i.gather(1, cur).to(torch.int64).clamp(0, n_pad - 1)
 
-        # pop from the unchecked set + mark visited
-        pool_e[rows, cur] |= sel_ok
+        # pop from the unchecked set + mark visited, one slot at a time (two
+        # slots of a row may share a visited word)
         word, bit1, bit2 = _hash_slots(cur_id, hash_bits, exact_hash)
         mask = torch.where(sel_ok, bits[bit1] | bits[bit2], 0)
-        visited[rows, word] |= mask
+        for j in range(p):
+            pool_e[rows, cur[:, j]] |= sel_ok[:, j]
+            visited[rows, word[:, j]] |= mask[:, j]
 
-        nb = nbr_e[cur_id]                                   # [B, e]
-        live_nb = (nb >= 0) & sel_ok[:, None]
+        nb = nbr_e[cur_id].reshape(b, p * e)                        # [B, p*e]
+        live_nb = (nb >= 0) & sel_ok.repeat_interleave(e, dim=1)
         nb_safe = nb.to(torch.int64).clamp(0, n_pad - 1)
         ok = live_nb & valid[nb_safe]
         # visited test (distanceChecked, Graph.cpp:597): both bits set
@@ -169,11 +205,19 @@ def graph_search(
         ok &= ~seen
         # pool membership keeps the pool duplicate-free
         ok &= ~(nb[:, :, None] == pool_i[:, None, :]).any(2)
+        if p > 1:
+            # neighbors of two expanded nodes may coincide: first one wins
+            ok &= ~_repeats(torch.where(ok, nb, -1), skip_negative=True)
 
         vc += live_nb.sum(1, dtype=torch.int32)
         dc += ok.sum(1, dtype=torch.int32)
 
-        nd = D.gathered(metric, queries, x[nb_safe])
+        if block_mode:
+            # one block row per expanded node scores all its neighbors
+            xs = x[cur_id].view(b, p, e_max, -1)[:, :, :e].reshape(b, p * e, -1)
+        else:
+            xs = x[nb_safe]
+        nd = scorer(queries, xs)
         # admission: dist <= explorationRadius (Graph.cpp:605-607)
         nd = torch.where(ok & (nd <= er[:, None]), nd, INF)
         ni = torch.where(torch.isinf(nd), -1, nb)
@@ -189,6 +233,7 @@ def graph_search(
         pool_i = torch.where(evict, -1, pool_i)
         pool_e = pool_e & ~evict
         it += 1
+    graph_search.steps += it
 
     out_d = pool_d[:, :k]
     out_i = pool_i[:, :k]
@@ -198,9 +243,28 @@ def graph_search(
     )
 
 
+#: loop steps, and seconds the host spent in the per-step done check (a
+#: wait for the device), summed over calls since they were last set to 0
+graph_search.steps = 0
+graph_search.wait_s = 0.0
+
+
+def _repeats(ids: torch.Tensor, skip_negative: bool = False) -> torch.Tensor:
+    """Flags every repeat of an id within its row after the first
+    occurrence in position order (a stable sort, flags scattered back);
+    with ``skip_negative`` negative ids are never flagged."""
+    srt, order = torch.sort(ids, dim=1, stable=True)
+    rep = srt[:, 1:] == srt[:, :-1]
+    if skip_negative:
+        rep &= srt[:, 1:] >= 0
+    rep = torch.cat([torch.zeros_like(rep[:, :1]), rep], 1)
+    return torch.zeros_like(rep).scatter(1, order, rep)
+
+
 def seeded_search(
     x, nbr, valid, rep_rows, rep_ids, queries, *, metric, k, s, epsilon=DEFAULT_EPSILON,
     radius=INF, edge_size=0, width=64, max_iters=0, hash_bits=16, exact_hash=False,
+    expand=1,
 ) -> SearchResult:
     """Seed scoring over the representative rows + graph search: the
     reference's tree descent + graph search (Index.h:1524-1567)."""
@@ -210,5 +274,5 @@ def seeded_search(
         x, nbr, valid, queries, seeds,
         metric=metric, k=k, epsilon=epsilon, radius=radius, width=width,
         edge_size=edge_size, max_iters=max_iters, hash_bits=hash_bits,
-        exact_hash=exact_hash,
+        exact_hash=exact_hash, expand=expand,
     )

@@ -9,10 +9,12 @@ layout is the JAX package's (``prf``, ``objects.npy``, the graph ``.npy``
 files, ``seeds.npz``, ``meta.json``), so each package opens the other's
 indexes.
 
-Every entry point runs on ``device`` (default ``"cuda"``).  This slice
-covers float32 objects under L2, the bulk build of a fresh index and the
-exact-graph search route; anything else raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+Every entry point runs on ``device`` (default ``"cuda"``).  The port
+covers float32 objects under L2, the bulk build of a fresh index and both
+search routes: the exact-graph route, and the quantized-graph route
+(``quant/qgraph.py``) that ``batch_search`` takes with default properties
+at ``search_qg_threshold`` (5,000) nodes or more.  Anything else raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ngt_tpu_torch.graph.build import DeviceMirror, build_bulk
+from ngt_tpu_torch.graph.build import _SQ8_METRICS, DeviceMirror, build_bulk
 from ngt_tpu_torch.graph.search import seeded_search, wrap_hash_bits
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.ops import bruteforce as BF
@@ -37,6 +39,7 @@ from ngt_tpu_torch.properties import (
 )
 from ngt_tpu_torch.seeds import Seeder, default_reps
 from ngt_tpu_torch.store import VectorStore
+from ngt_tpu_torch.utils import logger
 
 FORMAT_VERSION = 1
 
@@ -52,6 +55,10 @@ class Index:
         self.path = path
         self.zero_based = zero_based_numbering
         self.device = torch.device(device)
+        #: the quantized-graph mirror of the auto route (``_maybe_qg``)
+        self._qg = None
+        #: set by ``_maybe_qg`` when the index outgrew the qg size ceiling
+        self._qg_size_blocked = self._qg_size_warned = False
         if path is not None and os.path.exists(os.path.join(path, "prf")):
             self._load(path)
             return
@@ -148,14 +155,48 @@ class Index:
             return min(int(edge_size), self.graph.e_max)
         raise ValueError(f"invalid edge size: {edge_size}")
 
-    def _takes_qg_route(self) -> bool:
-        """Whether the reference would serve this index through its
-        quantized-graph mirror (ngt_tpu/index.py _maybe_qg)."""
+    def _maybe_qg(self):
+        """The quantized-graph mirror that plain ``batch_search`` calls
+        take (ngt_tpu/index.py:362-428), or None where the exact route
+        serves: search_mode "exact", a sparse store, a metric outside
+        ``_SQ8_METRICS``, fewer than search_qg_threshold nodes (unless
+        search_mode is "qg"), an empty graph, or, on the auto route, an
+        index whose floor-width blocks and codes exceed NGT_TPU_QG_MAX_GB
+        (9 GiB; sets ``_qg_size_blocked``).  The mirror refreshes itself
+        on inserts and graph changes."""
+        from ngt_tpu_torch.quant.qgraph import QuantizedGraphIndex
+
+        self._qg_size_blocked = False
         mode = self.prop.search_mode
+        if mode == "exact" or self.store.sparse:
+            return None
+        if self.store.metric not in _SQ8_METRICS:
+            return None
         n = self.graph.node_count()
-        return mode != "exact" and n > 0 and (
-            mode == "qg" or n >= self.prop.search_qg_threshold
-        )
+        if mode != "qg" and n < self.prop.search_qg_threshold:
+            return None
+        if n == 0:
+            return None
+        if mode != "qg" and self._qg is None:
+            cap = self.store._x.shape[0]
+            d_pad = self.store.d_pad
+            fmt = QuantizedGraphIndex.pick_mode(cap, d_pad)
+            bpd = d_pad if fmt == "sq8" else -(-d_pad // 4)   # bytes/row-edge
+            floor_bytes = cap * 8 * bpd + cap * bpd   # floor blocks + codes
+            max_gb = float(os.environ.get("NGT_TPU_QG_MAX_GB", "9"))
+            if floor_bytes > max_gb * (1 << 30):
+                self._qg_size_blocked = True
+                if not self._qg_size_warned:
+                    self._qg_size_warned = True
+                    logger.warning(
+                        "%s mirror skipped: %d-row blocks need %.1f GiB even at "
+                        "the width floor (> NGT_TPU_QG_MAX_GB=%g)",
+                        fmt, cap, floor_bytes / (1 << 30), max_gb,
+                    )
+                return None
+        if self._qg is None:
+            self._qg = QuantizedGraphIndex.quantize(self, mode="auto")
+        return self._qg
 
     def batch_search(
         self,
@@ -176,17 +217,20 @@ class Index:
             raise NotImplementedError(
                 "expected_accuracy needs the accuracy table (ROADMAP Queue 1, M14)"
             )
-        if expand > 1 or self.prop.search_expand > 1:
-            raise NotImplementedError(
-                "search expansion > 1 is not ported yet (ROADMAP Queue 1, M6)"
-            )
-        plain = (not with_stats and edge_size == -1 and not np.isfinite(radius)
-                 and expand == 0 and width == 0)
-        if plain and self._takes_qg_route():
-            raise NotImplementedError(
-                "the quantized-graph search route is not ported yet (ROADMAP "
-                "Queue 1, M9); create the index with search_mode='exact'"
-            )
+        if (not with_stats and edge_size == -1 and not np.isfinite(radius)
+                and expand == 0 and width == 0):
+            qg = self._maybe_qg()
+            if qg is not None:
+                return qg.batch_search(
+                    queries, size=size, epsilon=epsilon,
+                    result_expansion=self.prop.result_expansion, ef=ef,
+                )
+            if self._qg_size_blocked and self.prop.search_fallback != "exact":
+                raise NotImplementedError(
+                    "the IVFPQ mirror past the quantized-graph size ceiling is "
+                    "not ported yet (ROADMAP Queue 1, M15); set "
+                    "search_fallback='exact' to serve on the exact route"
+                )
         mirror = self._ensure_mirror()
         q = self.store.prepare_queries(np.asarray(queries, dtype=np.float32))
         b = q.shape[0]
@@ -213,6 +257,7 @@ class Index:
                 epsilon=epsilon, radius=radius, edge_size=e,
                 width=width if width > 0 else self._auto_width(kk, epsilon),
                 hash_bits=bits, exact_hash=exact,
+                expand=expand if expand > 0 else max(self.prop.search_expand, 1),
             )
             res_ids, res_d = res.ids.cpu().numpy(), res.dists.cpu().numpy()
             stats = {"visit_count": res.visit_count.cpu().numpy(),
@@ -315,6 +360,9 @@ class Index:
             ("free", ss["free"]),
         ):
             np.save(os.path.join(path, name + ".npy"), arr)
+        legacy = os.path.join(path, "graph.npz")   # round-1 layout, now stale
+        if os.path.exists(legacy):
+            os.remove(legacy)
         np.savez(os.path.join(path, "seeds.npz"), rep_ids=self.seeder.rep_ids)
         with open(os.path.join(path, "meta.json"), "w") as fh:
             json.dump(
@@ -330,16 +378,16 @@ class Index:
 
     def _load(self, path: str) -> None:
         self.prop = Property.load_dir(path)
-        if os.path.exists(os.path.join(path, "graph.npz")):
-            raise NotImplementedError(
-                "the round-1 graph.npz layout is not read by the port"
-            )
-        g = {
-            name: np.load(os.path.join(path, name + ".npy"))
-            for name in ("nbr_ids", "nbr_dist", "degree", "has_node", "valid", "free")
-        }
-        with open(os.path.join(path, "meta.json")) as fh:
-            g["e_max"] = json.load(fh)["e_max"]
+        if os.path.exists(os.path.join(path, "graph.npz")):   # round-1 layout
+            g = dict(np.load(os.path.join(path, "graph.npz")))
+        else:
+            g = {
+                name: np.load(os.path.join(path, name + ".npy"))
+                for name in ("nbr_ids", "nbr_dist", "degree", "has_node",
+                             "valid", "free")
+            }
+            with open(os.path.join(path, "meta.json")) as fh:
+                g["e_max"] = json.load(fh)["e_max"]
         self.store = VectorStore.from_state(
             {
                 "x": np.load(os.path.join(path, "objects.npy")),
@@ -361,11 +409,13 @@ class Index:
         if len(rep):
             self.seeder.set_representatives(rep, self.store._x)
         self._mirror = None
+        self._qg = None
         self.path = path
 
     def close(self) -> None:
         """Drop every device array the index holds."""
         self._mirror = None
+        self._qg = None
         self.store.release_device()
 
 

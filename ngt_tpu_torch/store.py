@@ -29,6 +29,10 @@ from ngt_tpu_torch.properties import DistanceType, ObjectType
 
 
 class VectorStore:
+    #: sparse id-set rows (SPARSE_JACCARD) are not ported (ROADMAP M3): the
+    #: port's store is always dense
+    sparse = False
+
     def __init__(
         self,
         dimension: int,
@@ -59,6 +63,9 @@ class VectorStore:
         self._device_valid: torch.Tensor | None = None
         self._device_sqnorm: torch.Tensor | None = None
         self._dirty = True
+        #: bumped on every insert, so derived structures (the quantized
+        #: codes) detect staleness without holding array references
+        self.mutation_count = 0
 
     # ----------------------------------------------------------- sizing ----
     def __len__(self) -> int:
@@ -119,6 +126,7 @@ class VectorStore:
         self._x[ids] = rows
         self._valid[ids] = True
         self._dirty = True
+        self.mutation_count += 1
         return ids
 
     def get(self, oid: int) -> np.ndarray:

@@ -1,13 +1,17 @@
-"""Logging for the PyTorch port (the counterpart of ``ngt_tpu/utils.py``).
+"""Logging and host helpers for the PyTorch port (the counterpart of
+``ngt_tpu/utils.py``).
 
 The engine logs through the ``ngt_tpu_torch`` logger; ``enable_log`` and
 ``disable_log`` flip its level, the analogue of the reference's
-``Index::enableLog/disableLog`` (Index.h:493-494).
+``Index::enableLog/disableLog`` (Index.h:493-494).  ``narrow_host`` picks
+the narrowest lossless dtype of an object matrix.
 """
 
 from __future__ import annotations
 
 import logging
+
+import numpy as np
 
 logger = logging.getLogger("ngt_tpu_torch")
 if not logger.handlers:
@@ -23,3 +27,38 @@ def enable_log() -> None:
 
 def disable_log() -> None:
     logger.setLevel(logging.CRITICAL)
+
+
+def narrow_host(xh: np.ndarray) -> np.ndarray:
+    """The narrowest LOSSLESS representation of an f32 matrix: uint8, then
+    int16, then float16, else ``xh`` unchanged.  Never lossy, so an
+    integral (SIFT-like) corpus sits on the device at 1 B/dim while every
+    distance still computes in f32 (ngt_tpu/utils.py:80-104).  Each
+    candidate dtype is first tried on a strided sample of about 4,096
+    values, so a matrix it cannot hold costs no full conversion."""
+    if xh.dtype != np.float32 or not xh.size:
+        return xh
+    flat = xh.reshape(-1)
+    sample = flat[:: max(1, flat.size // 4096)]
+
+    def exact(dtype) -> bool:
+        return bool(
+            np.array_equal(sample.astype(dtype).astype(np.float32), sample)
+            and np.array_equal(xh.astype(dtype).astype(np.float32), xh)
+        )
+
+    with np.errstate(invalid="ignore", over="ignore"):
+        try:
+            mn = float(xh.min())
+            mx = float(xh.max())
+            if 0 <= mn and mx <= 255:
+                if exact(np.uint8):
+                    return xh.astype(np.uint8)
+            elif -32768 <= mn and mx <= 32767:
+                if exact(np.int16):
+                    return xh.astype(np.int16)
+            if exact(np.float16):
+                return xh.astype(np.float16)
+        except (ValueError, OverflowError):  # non-finite min/max
+            pass
+    return xh

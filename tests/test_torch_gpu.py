@@ -102,3 +102,86 @@ def test_top_seeds_orders_ties_by_position_on_the_card(cuda):
     got = top_seeds(torch.from_numpy(scores).to(cuda), 10).cpu().numpy()
     want = np.argsort(scores, axis=1, kind="stable")[:, :10]
     np.testing.assert_array_equal(got, want)
+
+
+def _port_index(rng, n, d, dev, **props):
+    """A port index built on the CPU, carried to ``dev``: both devices
+    then search one graph."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch import convert
+
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    cpu = ngt_tpu_torch.create(None, dimension=d, device="cpu", **props)
+    cpu.batch_insert(x, build=True)
+    return x, cpu, convert.from_ngt_tpu_arrays(device=dev, **convert.to_numpy_state(cpu))
+
+
+@pytest.mark.parametrize("regime,expand", [("exact", 1), ("lossy", 2)])
+def test_block_graph_search_on_the_card_matches_cpu(cuda, regime, expand):
+    """Block-mode graph_search on the card against the CPU port on the same
+    blocks and seeds: ids on >= 99.9% of entries (f32 sums run in another
+    order on the card), distances to rtol 1e-5 where the ids agree."""
+    from ngt_tpu_torch.graph import search as TS
+    from ngt_tpu_torch.properties import DistanceType
+
+    rng = np.random.default_rng(11)
+    _, cpu, _ = _port_index(rng, 6000, 32, cuda)
+    m = cpu._ensure_mirror()
+    n, eb = m.x.shape[0], 24
+    x = m.x.numpy().astype(np.float32)
+    scale = float(np.abs(x).max()) / 127.0
+    codes = np.clip(np.round(x * np.float32(1.0 / scale)), -127, 127).astype(np.int8)
+    nbr = m.nbr.numpy()[:, :eb].copy()
+    blocks = codes[np.clip(nbr, 0, n - 1)].reshape(n, -1)
+    q = rng.standard_normal((300, x.shape[1])).astype(np.float32) / scale
+    q[:, 32:] = 0.0
+    seeds = rng.integers(1, 6001, size=(300, 10)).astype(np.int32)
+    bits, exact = TS.wrap_hash_bits(n) if regime == "exact" else (10, False)
+    kw = dict(metric=DistanceType.L2, k=30, k_radius=10, epsilon=0.1, width=64,
+              hash_bits=bits, exact_hash=exact, expand=expand, block_mode=True)
+    args = [torch.from_numpy(a) for a in (blocks, nbr, m.valid.numpy(), q, seeds, codes)]
+    want = TS.graph_search(*args[:5], seed_x=args[5], **kw)
+    got = TS.graph_search(*[a.to(cuda) for a in args[:5]], seed_x=args[5].to(cuda), **kw)
+    same = got.ids.cpu() == want.ids
+    assert same.float().mean().item() >= 0.999
+    np.testing.assert_allclose(got.dists.cpu()[same].numpy(), want.dists[same].numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [0, 10])
+def test_qg_batch_search_on_the_card_matches_cpu(cuda, bits):
+    """The quantized-graph route on the card against the CPU port, one
+    graph: codes and scale equal exactly, ids on >= 99.9% of entries."""
+    rng = np.random.default_rng(12)
+    x, cpu, card = _port_index(rng, 8192, 48, cuda, search_mode="qg",
+                               visited_bits_log2=bits)
+    q = x[:700] + 0.3 * rng.standard_normal((700, 48)).astype(np.float32)
+    ci, cd = cpu.batch_search(q, size=10)
+    gi, gd = card.batch_search(q, size=10)
+    assert card._qg._codes_dev.is_cuda
+    assert card._qg.sq_scale == cpu._qg.sq_scale
+    # the carried index holds exactly its rows, the built one 2^k
+    np.testing.assert_array_equal(card._qg._host_codes(), cpu._qg._host_codes()[:8193])
+    same = gi == ci
+    assert same.mean() >= 0.999
+    np.testing.assert_allclose(gd[same], cd[same], rtol=1e-5)
+
+
+def test_rerank_orders_ties_by_position_on_the_card(cuda):
+    """The qg re-rank keeps the lower candidate position on exact distance
+    ties, as the reference's top-k does: duplicate rows tie exactly, and
+    position order is not id order here."""
+    from ngt_tpu_torch.properties import DistanceType
+    from ngt_tpu_torch.quant.qgraph import _rerank_body
+
+    rng = np.random.default_rng(13)
+    x = rng.integers(0, 4, (64, 128)).astype(np.float32)
+    x[32:] = x[:32]                                   # row i + 32 twins row i
+    q = rng.integers(0, 4, (256, 128)).astype(np.float32)
+    cand = np.stack([rng.permutation(64)[:40] for _ in range(256)]).astype(np.int32)
+    ok = np.ones_like(cand, bool)
+    d = np.sqrt(((q[:, None, :] - x[cand]) ** 2).sum(-1))
+    want = np.take_along_axis(cand, np.argsort(d, axis=1, kind="stable")[:, :10], 1)
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    ids, _ = _rerank_body(t(x), t(q), t(cand), t(ok), DistanceType.L2, 10)
+    np.testing.assert_array_equal(ids.cpu().numpy(), want)

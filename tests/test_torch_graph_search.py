@@ -136,3 +136,84 @@ def test_seeder_ties_match_jax():
         # the tie really is at the s-th place: the next seed is the twin
         nxt = ts.seeds_for(torch.from_numpy(q), s + 1).numpy()[:, -1]
         assert (np.abs(nxt - tid[:, -1]) == half).all()
+
+
+def _sq8(x):
+    """int8 codes of x with one global scale, as the quantized graph makes
+    them (max |component| / 127, round half to even)."""
+    scale = float(np.abs(x).max()) / 127.0
+    inv = np.float32(1.0 / scale)
+    return np.clip(np.round(x * inv), -127, 127).astype(np.int8), scale
+
+
+@pytest.mark.parametrize("regime,expand,k_radius,edge_size", [
+    ("exact", 1, 0, 0),
+    ("lossy", 1, 0, 0),
+    ("exact", 2, 0, 0),
+    ("lossy", 3, 0, 12),
+    ("exact", 1, 5, 0),       # k_radius < k: explore with the 5th radius
+    ("lossy", 2, 4, 20),
+])
+def test_block_graph_search_matches_jax(graph_state, regime, expand, k_radius, edge_size):
+    """Block mode (one neighbor block row per expanded node, seeds scored
+    from the per-object codes) with ``expand`` > 1, ``k_radius`` < k and an
+    edge limit below the block width: the quantized graph's traversal."""
+    port = convert.from_ngt_tpu_arrays(device="cpu", **graph_state)
+    mirror = port._ensure_mirror()
+    n = mirror.x.shape[0]
+    eb = 24
+    x = mirror.x.numpy().astype(np.float32)
+    codes, scale = _sq8(x)
+    nbr = mirror.nbr.numpy()[:, :eb]
+    blocks = codes[np.clip(nbr, 0, n - 1)].reshape(n, -1)
+    bits, exact = TS.wrap_hash_bits(n) if regime == "exact" else (10, False)
+    rng = np.random.default_rng(9)
+    q = np.zeros((40, x.shape[1]), np.float32)
+    q[:, :32] = rng.standard_normal((40, 32)) / scale
+    seeds = rng.integers(1, n, size=(40, 10)).astype(np.int32)
+    seeds[2, 4] = seeds[2, 0]
+    seeds[3, 7] = -1
+    kw = dict(k=30, k_radius=k_radius, epsilon=0.1, width=64, edge_size=edge_size,
+              hash_bits=bits, exact_hash=exact, expand=expand, block_mode=True)
+    jr = JS.graph_search(
+        jnp.asarray(blocks), jnp.asarray(nbr), jnp.asarray(mirror.valid.numpy()),
+        jnp.asarray(q), jnp.asarray(seeds), metric=ngt_tpu.DistanceType.L2,
+        seed_x=jnp.asarray(codes), **kw,
+    )
+    tr = TS.graph_search(
+        torch.from_numpy(blocks), torch.from_numpy(nbr), mirror.valid,
+        torch.from_numpy(q), torch.from_numpy(seeds), metric=DistanceType.L2,
+        seed_x=torch.from_numpy(codes), **kw,
+    )
+    np.testing.assert_array_equal(tr.ids.numpy(), np.asarray(jr.ids))
+    np.testing.assert_allclose(tr.dists.numpy(), np.asarray(jr.dists), rtol=1e-6)
+    np.testing.assert_array_equal(tr.visit_count.numpy(), np.asarray(jr.visit_count))
+    np.testing.assert_array_equal(tr.dist_count.numpy(), np.asarray(jr.dist_count))
+    assert tr.iters == int(jr.iters)
+
+
+def test_scorer_replaces_the_metric(graph_state):
+    """A pluggable scorer (queries, rows) -> [B, E] drives the traversal:
+    an L1 scorer gives the reference's traversal under its own L1 scorer."""
+    port = convert.from_ngt_tpu_arrays(device="cpu", **graph_state)
+    mirror = port._ensure_mirror()
+    n = mirror.x.shape[0]
+    rng = np.random.default_rng(3)
+    q = np.zeros((16, mirror.x.shape[1]), np.float32)
+    q[:, :32] = rng.standard_normal((16, 32))
+    seeds = rng.integers(1, n, size=(16, 8)).astype(np.int32)
+    kw = dict(k=10, epsilon=0.1, width=64, hash_bits=16, exact_hash=False)
+    jr = JS.graph_search(
+        jnp.asarray(mirror.x.numpy()), jnp.asarray(mirror.nbr.numpy()),
+        jnp.asarray(mirror.valid.numpy()), jnp.asarray(q), jnp.asarray(seeds),
+        metric=ngt_tpu.DistanceType.L2,
+        scorer=lambda qs, rows, rsq, qsq: jnp.abs(qs[:, None, :] - rows).sum(-1), **kw,
+    )
+    tr = TS.graph_search(
+        mirror.x, mirror.nbr, mirror.valid, torch.from_numpy(q), torch.from_numpy(seeds),
+        metric=DistanceType.L2,
+        scorer=lambda qs, rows: (qs[:, None, :] - rows).abs().sum(-1), **kw,
+    )
+    np.testing.assert_array_equal(tr.ids.numpy(), np.asarray(jr.ids))
+    np.testing.assert_allclose(tr.dists.numpy(), np.asarray(jr.dists), rtol=1e-6)
+    np.testing.assert_array_equal(tr.dist_count.numpy(), np.asarray(jr.dist_count))

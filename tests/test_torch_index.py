@@ -1,8 +1,9 @@
 """The port's Index (ngt_tpu_torch/index.py) end to end against the JAX
 package, on the CPU: create -> batch_insert(build=True) -> batch_search on
 the exact route gives equal ids; an index saved by either package opens in
-the other and searches alike; the port runs with JAX unimportable and
-imports neither JAX nor the JAX package anywhere.
+the other and searches alike, the round-1 graph.npz layout included; the
+port runs with JAX unimportable and imports neither JAX nor the JAX
+package anywhere.
 """
 
 import ast
@@ -78,16 +79,77 @@ def test_port_index_opens_in_jax(data, tmp_path):
     np.testing.assert_array_equal(t2.batch_search(q, size=10)[0], ti)
 
 
-def test_unported_routes_raise(data):
+def test_unported_routes_raise(data, monkeypatch):
     base = data[0][:300]
     t = ngt_tpu_torch.create(None, dimension=DIM, device="cpu", search_qg_threshold=100)
     t.batch_insert(base, build=True)
-    with pytest.raises(NotImplementedError, match="M9"):
-        t.batch_search(base[:2])            # auto routing -> quantized graph
+    ids, _ = t.batch_search(base[:2])       # auto routing -> quantized graph
+    assert t._qg is not None and list(ids[:, 0]) == [0, 1]
+    # past the qg size ceiling: the IVFPQ fallback is not ported; the exact
+    # fallback serves as search_mode="exact" does
+    monkeypatch.setenv("NGT_TPU_QG_MAX_GB", "1e-6")
+    t._qg = None
+    with pytest.raises(NotImplementedError, match="M15"):
+        t.batch_search(base[:2])
+    t.prop.search_fallback = "exact"
+    got = t.batch_search(base[:4])
+    t.prop.search_mode = "exact"
+    want = t.batch_search(base[:4])
+    np.testing.assert_array_equal(got[0], want[0])
+    monkeypatch.delenv("NGT_TPU_QG_MAX_GB")
+    # a block budget too small for 8 sq8 columns picks pq4 codes
+    monkeypatch.setenv("NGT_TPU_QG_BLOCK_GB", "1e-6")
+    t.prop.search_mode = "qg"
+    with pytest.raises(NotImplementedError, match="M12"):
+        t.batch_search(base[:2])
     with pytest.raises(NotImplementedError, match="M11"):
         t.batch_insert(base[:5])            # append to a built graph
     with pytest.raises(NotImplementedError, match="M2"):
         ngt_tpu_torch.create(None, dimension=DIM, distance_type="Cosine", device="cpu")
+
+
+def _legacy_dir(jax_index, path):
+    """A copy of ``jax_index``'s directory in the round-1 layout: the graph
+    and store arrays in one graph.npz with the reference's keys."""
+    import shutil
+
+    shutil.copytree(jax_index.path, path)
+    g = {"e_max": np.int64(jax_index.graph.e_max)}
+    for name in ("nbr_ids", "nbr_dist", "degree", "has_node", "valid", "free"):
+        g[name] = np.load(os.path.join(path, name + ".npy"))
+        os.remove(os.path.join(path, name + ".npy"))
+    os.remove(os.path.join(path, "meta.json"))
+    np.savez(os.path.join(path, "graph.npz"), **g)
+
+
+def test_legacy_graph_npz_opens_alike(data, jax_index, tmp_path):
+    """Both packages read a round-1 graph.npz directory to the same ids."""
+    path = str(tmp_path / "legacy")
+    _legacy_dir(jax_index, path)
+    q = data[1]
+    t = ngt_tpu_torch.open_index(path, device="cpu")
+    j = ngt_tpu.open_index(path)
+    assert t.verify() == []
+    ti, td = t.batch_search(q, size=10)
+    np.testing.assert_array_equal(ti, np.asarray(j.batch_search(q, size=10)[0]))
+    np.testing.assert_array_equal(ti, np.asarray(jax_index.batch_search(q, size=10)[0]))
+
+
+def test_port_save_removes_stale_graph_npz(data, jax_index, tmp_path):
+    """A port save into a directory that holds a round-1 graph.npz deletes
+    it, so neither package reads the stale graph afterwards."""
+    path = str(tmp_path / "stale")
+    _legacy_dir(jax_index, path)
+    base, q = data
+    t = ngt_tpu_torch.create(None, dimension=DIM, search_mode="exact", device="cpu")
+    t.batch_insert(base[::2], build=True)   # another corpus, another graph
+    t.save(path)
+    assert not os.path.exists(os.path.join(path, "graph.npz"))
+    want = t.batch_search(q, size=10)[0]
+    np.testing.assert_array_equal(ngt_tpu_torch.open_index(path, device="cpu")
+                                  .batch_search(q, size=10)[0], want)
+    np.testing.assert_array_equal(np.asarray(ngt_tpu.open_index(path)
+                                             .batch_search(q, size=10)[0]), want)
 
 
 def test_port_runs_without_jax():
