@@ -42,7 +42,26 @@ route on the same index, and checks each result:
     mirror tensor itself at scale 1.0, recall@10 above QG_RECALL_FLOOR;
 11. card against CPU: the qg route at 8,192 rows on the card and on the
     CPU over one graph, in the exact and the lossy visited regime: codes
-    equal, ids on >= 99.9% of entries.
+    equal, ids on >= 99.9% of entries;
+12. the Cosine arm at 1M, bench.py's angular protocol: ``glove_proxy``
+    (1,000,000 x 100, seed 3, rows stored un-normalized), ``create`` with
+    distance_type "Cosine" and edge_size_for_creation 40; the build scans
+    a row-normalized copy through the window-scan kernel (its launches on
+    this arm, its phase split); the first 40 edges of 2,000 rows against
+    exact cosine k-NN (>= 99%) and ``verify``; 8,192 corpus rows as
+    queries (``default_rng(23)``, size 11, the self-match stripped) on
+    the qg route at epsilon 0.02: sq8 codes of the normalized rows,
+    normalized traversal queries, eb and refine, recall@10 above
+    COSINE_QG_RECALL_FLOOR against the card's exact linear search, its
+    queries/s and stage split; the exact route at the same epsilon
+    (printed only);
+13. card against CPU for every metric and object type: each of the
+    twelve metrics and an L2 index of BFLOAT16 objects built at 4,096
+    rows on the card and on the CPU, searched with 256 queries: adjacency
+    and exact-route ids on >= 99.9% of entries; for the metrics the qg
+    route serves, its ids on >= 99.9% of entries, the sq8 scale to 1e-6
+    relative and the codes equal on >= 99.99% of entries, never more than
+    1 apart.
 
 It prints a few dozen short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
@@ -83,6 +102,13 @@ SELF_HIT_FLOOR = 0.99
 #: run measured 0.9874 (sq8) and 0.9883 (u8); the floor sits 1.24 points
 #: below the lower (PERF.md)
 QG_RECALL_FLOOR = 0.975
+#: the Cosine arm (phase 12): bench.py's 1M angular protocol
+N_GLOVE, N_GLOVE_Q, GLOVE_DIM = 1_000_000, 8192, 100
+#: recall@10 floor of the Cosine arm's qg route at epsilon 0.02 (the JAX
+#: package's notes claim 0.9818 for this protocol on its own hardware)
+COSINE_QG_RECALL_FLOOR = 0.97
+#: rows and queries of each index of phase 13
+N_METRIC, N_METRIC_Q, METRIC_DIM = 4096, 256, 64
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM bytes/s
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
@@ -115,6 +141,40 @@ def sift_proxy(n: int, d: int = DIM, seed: int = SEED, kc: int = 2048) -> np.nda
             off += m
     out += np.abs(out.min(axis=0, keepdims=True))
     return out[rng.permutation(n)]
+
+
+def glove_proxy(n: int, d: int = GLOVE_DIM, seed: int = 3, kc: int = 4096) -> np.ndarray:
+    """A glove-100-shaped angular corpus (bench.py's generator): a
+    power-law spectrum (i^-0.1) under a random rotation, Zipf(1.05) cluster
+    sizes, per-cluster log-normal anisotropy and log-normal row norms
+    (stored un-normalized)."""
+    rng = np.random.default_rng(seed)
+    v = np.linalg.qr(rng.normal(size=(d, d)))[0].astype(np.float32)
+    s = np.arange(1, d + 1, dtype=np.float32) ** -0.1
+    w = np.arange(1, kc + 1, dtype=np.float64) ** -1.05
+    w /= w.sum()
+    sizes = rng.multinomial(n, w)
+    centers = (rng.normal(size=(kc, d)).astype(np.float32) * (0.8 * s)) @ v.T
+    out = np.empty((n, d), np.float32)
+    off = 0
+    for c in range(kc):
+        m = sizes[c]
+        if m == 0:
+            continue
+        local = s * rng.lognormal(0.0, 0.15, size=d).astype(np.float32)
+        local *= rng.uniform(0.9, 1.2)
+        out[off : off + m] = centers[c] + (rng.normal(size=(m, d)).astype(np.float32) * local) @ v.T
+        off += m
+    out *= rng.lognormal(0.0, 0.35, size=(n, 1)).astype(np.float32)
+    return out[rng.permutation(n)]
+
+
+def strip_self(ids11: np.ndarray, self_ids: np.ndarray) -> np.ndarray:
+    """The first 10 ids of each row other than the query's own id."""
+    keep = ids11 != self_ids[:, None]
+    order = np.argsort(~keep, axis=1, kind="stable")[:, :10]
+    return np.where(np.take_along_axis(keep, order, 1),
+                    np.take_along_axis(ids11, order, 1), -1)
 
 
 def time_ms(fn, warm: int = 3, reps: int = 10) -> float:
@@ -452,6 +512,187 @@ def card_vs_cpu(dev, n: int = 8192, nq: int = 1000) -> None:
     card.close()
 
 
+def cosine_arm(dev, kind: str) -> int:
+    """Phase 12: the 1M Cosine arm of bench.py's angular protocol.  Returns
+    the window-scan launches of its build."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.graph import build as TB
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.ops import window_scan as WS
+    from ngt_tpu_torch.quant import qgraph as QG
+
+    t0 = time.time()
+    data = glove_proxy(N_GLOVE)
+    qi = np.random.default_rng(23).choice(N_GLOVE, N_GLOVE_Q, replace=False)
+    queries = data[qi]
+    log(f"cosine arm: glove_proxy {N_GLOVE} x {GLOVE_DIM} in {time.time() - t0:.1f} s, "
+        f"{N_GLOVE_Q} corpus rows as queries")
+    os.environ["NGT_TPU_BUILD_PROFILE"] = "1"
+    WS.window_scan.launches = 0
+    t0 = time.time()
+    idx = ngt_tpu_torch.create(None, dimension=GLOVE_DIM, distance_type="Cosine",
+                               edge_size_for_creation=40, device=dev)
+    idx.batch_insert(data, build=True)
+    torch.cuda.synchronize()
+    launches = WS.window_scan.launches
+    del os.environ["NGT_TPU_BUILD_PROFILE"]
+    log(f"cosine arm: build of {N_GLOVE} x {GLOVE_DIM} (Cosine, edge_size_for_creation 40): "
+        f"{time.time() - t0:.1f} s; window_scan launches on this arm {launches}")
+    log("cosine arm: build phases (s): " + ", ".join(
+        f"{label} {sec:.3f}" for label, sec in TB.last_profile))
+    if launches == 0:
+        raise AssertionError("the Cosine build never launched the window-scan kernel")
+
+    k = idx.prop.edge_size_for_creation
+    qsel = np.random.default_rng(2).choice(N_GLOVE, 2000, replace=False)
+    gt_q, _ = idx.batch_linear_search(data[qsel], size=k + 1)
+    rows = idx.graph.nbr_ids[qsel + 1, :k] - 1
+    agree = float(np.mean([
+        len(set(r.tolist()) & set(g[g != s].tolist()[:k])) / k
+        for r, g, s in zip(rows, gt_q, qsel)
+    ]))
+    log(f"cosine arm: {agree:.5f} of the first {k} edges of {len(qsel)} rows are exact "
+        "cosine k-NN edges")
+    if agree < 0.99:
+        raise AssertionError(f"cosine edge agreement {agree:.5f} below 0.99")
+    problems = idx.verify()
+    if problems:
+        raise AssertionError(f"cosine verify: {problems}")
+    gt = strip_self(np.concatenate([
+        idx.batch_linear_search(queries[i : i + 2048], size=11)[0]
+        for i in range(0, N_GLOVE_Q, 2048)
+    ]), qi)
+
+    # the qg route of default properties at epsilon 0.02, stage timer on
+    os.environ["NGT_TPU_QG_PROFILE"] = "1"
+    QG.last_profile.clear()
+    graph_search.steps, graph_search.wait_s = 0, 0.0
+    t0 = time.time()
+    found, _ = idx.batch_search(queries, size=11, epsilon=0.02)
+    secs = time.time() - t0
+    del os.environ["NGT_TPU_QG_PROFILE"]
+    qg = idx._qg
+    if qg is None or qg.mode != "sq8":
+        raise AssertionError("the Cosine search did not take the sq8 qg route")
+    eb = qg._dev_blocks()[1].shape[1]
+    codes = qg._dev_codes()
+    normalized = QG._normalizes(idx.store.metric)
+    log(f"cosine arm: qg route: mode {qg.mode}, codes {str(codes.dtype)}, scale "
+        f"{qg.sq_scale!r} (x 127 = {qg.sq_scale * 127:.6f}), eb {eb} of {idx.graph.e_max}, "
+        f"refine {qg._resolve_refine(idx.graph.e_max, eb)}, codes from row-normalized rows "
+        f"and normalized traversal queries: {normalized}")
+    if not normalized or codes.dtype != torch.int8 or qg.sq_scale * 127 > 1.0 + 1e-6:
+        raise AssertionError("the Cosine qg codes are not the sq8 codes of unit rows")
+    rec = BF.recall_at_k(strip_self(found, qi), gt, 10)
+    once = sum(QG.last_profile.get(s, 0.0) for s in ("quantize", "blocks"))
+    log(f"cosine arm: qg route recall@10 {rec:.4f} at epsilon 0.02, {N_GLOVE_Q / secs:.0f} "
+        f"queries/s ({secs:.2f} s, {graph_search.steps} steps; "
+        f"{N_GLOVE_Q / max(secs - once, 1e-9):.0f} queries/s without the one-time quantize "
+        f"and block gather) on {kind}; where the time went:")
+    qg_split(secs, -(-N_GLOVE_Q // 512))
+    if rec < COSINE_QG_RECALL_FLOOR:
+        raise AssertionError(f"cosine qg recall@10 {rec:.4f} below {COSINE_QG_RECALL_FLOOR}")
+    idx.prop.search_mode = "exact"
+    graph_search.steps = 0
+    t0 = time.time()
+    found, _ = idx.batch_search(queries, size=11, epsilon=0.02)
+    secs = time.time() - t0
+    log(f"cosine arm: exact route recall@10 {BF.recall_at_k(strip_self(found, qi), gt, 10):.4f} "
+        f"at epsilon 0.02, {N_GLOVE_Q / secs:.0f} queries/s ({secs:.2f} s, "
+        f"{graph_search.steps} steps) on {kind}")
+    idx.close()
+    return launches
+
+
+#: phase 13's indexes: every metric, and BFLOAT16 objects under L2
+METRIC_CONFIGS = [
+    ("L1", "Float"), ("L2", "Float"), ("Hamming", "Byte"), ("Angle", "Float"),
+    ("Cosine", "Float"), ("Normalized Angle", "Float"), ("Normalized Cosine", "Float"),
+    ("Jaccard", "Byte"), ("Sparse Jaccard", "Float"), ("Normalized L2", "Float"),
+    ("Poincare", "Float"), ("Lorentz", "Float"), ("L2", "bfloat16"),
+]
+
+
+def metric_corpus(metric: str, rng, n: int, d: int) -> np.ndarray:
+    """Clustered rows of the metric's domain: uint8 bit patterns (a few
+    bits flipped from 32 centers) for Hamming and Jaccard, id sets drawn
+    from 32 cluster vocabularies for sparse Jaccard, Poincare and Lorentz
+    rows as tests/test_hyperbolic.py makes them, else f32 rows around 32
+    centers with log-normal norms."""
+    pick = rng.integers(0, 32, size=n)
+    if metric in ("Hamming", "Jaccard"):
+        centers = rng.integers(0, 256, (32, d)).astype(np.uint8)
+        flips = np.packbits(rng.random((n, d, 8)) < 0.06, axis=-1)[..., 0]
+        return centers[pick] ^ flips
+    if metric == "Sparse Jaccard":
+        from ngt_tpu_torch.store import pad_sparse
+
+        pools = [rng.choice(8 * d, d, replace=False) for _ in range(32)]
+        return pad_sparse([rng.choice(pools[c], rng.integers(4, d // 2), replace=False)
+                           for c in pick], d)
+    if metric == "Poincare":
+        centers = rng.normal(size=(16, d))
+        centers /= np.linalg.norm(centers, axis=1, keepdims=True) * 2.0
+        x = centers[pick % 16] + rng.normal(size=(n, d)) * 0.08
+        norm = np.linalg.norm(x, axis=1, keepdims=True)
+        return np.where(norm > 0.85, x * (0.85 / norm), x).astype(np.float32)
+    if metric == "Lorentz":
+        centers = rng.normal(size=(16, d - 1)) * 0.6
+        sp = centers[pick % 16] + rng.normal(size=(n, d - 1)) * 0.15
+        return np.concatenate([np.sqrt(1.0 + (sp**2).sum(1, keepdims=True)), sp],
+                              1).astype(np.float32)
+    x = rng.normal(size=(32, d))[pick] + 0.5 * rng.normal(size=(n, d))
+    return (x * rng.lognormal(0.0, 0.35, (n, 1))).astype(np.float32)
+
+
+def metrics_card_vs_cpu(dev) -> None:
+    """Phase 13: every metric and object type built and searched on the
+    card and on the CPU port at N_METRIC rows: adjacency and exact-route
+    ids on >= 99.9% of entries; the qg route's ids, scale and codes where
+    it serves the metric."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.graph.build import _SQ8_METRICS
+
+    n = N_METRIC
+    for c, (metric, otype) in enumerate(METRIC_CONFIGS):
+        t0 = time.time()
+        x = metric_corpus(metric, np.random.default_rng(100 + c), n + N_METRIC_Q, METRIC_DIM)
+        q = x[n:]
+        pair = []
+        for d in (dev, "cpu"):
+            idx = ngt_tpu_torch.create(None, dimension=METRIC_DIM, distance_type=metric,
+                                       object_type=otype, search_mode="exact", device=d)
+            idx.batch_insert(x[:n], build=True)
+            pair.append(idx)
+        card, cpu = pair
+        adj = float((card.graph.nbr_ids[: n + 1] == cpu.graph.nbr_ids[: n + 1]).mean())
+        gi, gd = card.batch_search(q, size=10)
+        ci, cd = cpu.batch_search(q, size=10)
+        ids = float((gi == ci).mean())
+        line = (f"card vs CPU, {metric} ({otype}) at {n} rows: adjacency {adj:.6f}, "
+                f"exact-route ids {ids:.6f}")
+        ok = adj >= 0.999 and ids >= 0.999
+        if card.store.metric in _SQ8_METRICS:
+            card.prop.search_mode = cpu.prop.search_mode = "qg"
+            gi, _ = card.batch_search(q, size=10, epsilon=0.1)
+            ci, _ = cpu.batch_search(q, size=10, epsilon=0.1)
+            qids = float((gi == ci).mean())
+            tc = card._qg._host_codes()[: n + 1].astype(np.int16)
+            cc = cpu._qg._host_codes()[: n + 1].astype(np.int16)
+            rel = abs(card._qg.sq_scale - cpu._qg.sq_scale) / cpu._qg.sq_scale
+            same = float((tc == cc).mean())
+            line += (f", qg-route ids {qids:.6f}, scale rel diff {rel:.2e}, codes equal "
+                     f"{same:.6f} (most apart {int(np.abs(tc - cc).max())})")
+            ok = ok and qids >= 0.999 and rel <= 1e-6 and same >= 0.9999 \
+                and int(np.abs(tc - cc).max()) <= 1
+        log(line + f"; {time.time() - t0:.1f} s")
+        if not ok:
+            raise AssertionError(f"card and CPU disagree for {metric} ({otype})")
+        card.close()
+        cpu.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -549,8 +790,13 @@ def main() -> int:
     del allx, base, held
     torch.cuda.empty_cache()
     card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    cos_launches = cosine_arm(dev, kind)
+    log(f"window_scan launches on the Cosine arm: {cos_launches}")
+    torch.cuda.empty_cache()
+    metrics_card_vs_cpu(dev)
 
-    # 12. kernels, device, result
+    # 14. kernels, device, result
     # the last three lines go out bare: the kernels line, the nvidia-smi
     # line and the result line are read by machines
     log(f"total {time.time() - t_start:.1f} s")

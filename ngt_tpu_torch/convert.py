@@ -1,8 +1,10 @@
 """Carry an index's state between the JAX package and the port as numpy
-arrays — the arrays of ``VectorStore.state_dict``, ``GraphStore.state_dict``
-and ``Seeder.rep_ids`` plus the property fields, and a quantized graph's
-codes, mode, scale and block width.  Tests use it to give both packages
-the same graph and the same codes.
+arrays — the arrays of ``VectorStore.state_dict`` (float32, uint8 or
+sparse int32 rows; a BFLOAT16 store's float32 host rows),
+``GraphStore.state_dict``, ``Seeder.rep_ids`` and the reps' squared norms,
+plus the property fields, and a quantized graph's codes, mode, scale and
+block width.  Tests use it to give both packages the same graph and the
+same codes.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import dataclasses
 import enum
 
 import numpy as np
+import torch
 
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.index import Index
@@ -29,15 +32,18 @@ def _property(prop_dict: dict) -> Property:
 
 
 def from_ngt_tpu_arrays(objects, valid, nbr_ids, nbr_dist, degree, has_node,
-                        rep_ids, prop_dict, device="cuda", free=None) -> Index:
-    """A port ``Index`` holding the given state: ``objects`` [n, d_pad] f32
-    and ``valid`` [n] (row 0 the dummy slot), the adjacency arrays of n
-    rows, the seed representative ids and a dict of ``Property`` fields."""
+                        rep_ids, prop_dict, device="cuda", free=None,
+                        rep_sq=None) -> Index:
+    """A port ``Index`` holding the given state: ``objects`` [n, d_pad] in
+    the store's dtype and ``valid`` [n] (row 0 the dummy slot), the
+    adjacency arrays of n rows, the seed representative ids (with their
+    squared norms ``rep_sq`` when given, else computed) and a dict of
+    ``Property`` fields."""
     prop = _property(prop_dict)
     idx = Index(prop=prop, device=device)
     idx.store = VectorStore.from_state(
         {
-            "x": np.asarray(objects, np.float32),
+            "x": np.asarray(objects),
             "valid": np.asarray(valid, bool),
             "free": np.zeros(0, np.int32) if free is None else np.asarray(free),
             "dimension": prop.dimension,
@@ -53,6 +59,9 @@ def from_ngt_tpu_arrays(objects, valid, nbr_ids, nbr_dist, degree, has_node,
     idx.graph.ensure_capacity(idx.store._x.shape[0])
     if len(rep_ids):
         idx.seeder.set_representatives(np.asarray(rep_ids, np.int32), idx.store._x)
+        if rep_sq is not None:
+            idx.seeder._rep_sq = torch.from_numpy(
+                np.array(rep_sq, np.float32)).to(idx.device)
     return idx
 
 
@@ -72,6 +81,8 @@ def to_numpy_state(index: Index) -> dict:
         "nbr_ids": gs["nbr_ids"], "nbr_dist": gs["nbr_dist"],
         "degree": gs["degree"], "has_node": gs["has_node"],
         "rep_ids": index.seeder.rep_ids, "prop_dict": prop,
+        "rep_sq": (None if index.seeder._rep_sq is None
+                   else index.seeder._rep_sq.cpu().numpy()),
     }
 
 

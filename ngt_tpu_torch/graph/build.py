@@ -2,13 +2,20 @@
 ``ngt_tpu/graph/build.py``).
 
 A fresh index is built from EXACT k-NN edges plus reverse edges: one bulk
-k-NN scan (``ops/bruteforce.fast_knn_l2_bulk``; at >= 2^19 rows on a CUDA
-device its candidate scan is the hand kernel of ``ops/window_scan.py``),
-every adjacency row assembled in one device sort-and-scatter, connected
-components by device min-label propagation, and bridges from each
-secondary component to its nearest representative in another component.
+k-NN scan, every adjacency row assembled in one device sort-and-scatter,
+connected components by device min-label propagation, and bridges from
+each secondary component to its nearest representative in another
+component.
 An exact k-NN graph with reverse edges is the ideal the reference's
 refineANNG approaches (GraphReconstructor.h:803-924).
+
+The scan: L2 and the normalized and angular metrics take the bf16 scan
+with an exact re-rank (``ops/bruteforce.fast_knn_l2_bulk``; at >= 2^19
+rows on a CUDA device its candidate scan is the hand kernel of
+``ops/window_scan.py``).  Plain Cosine and Angle scan a row-normalized
+copy, where both are monotone in L2, and convert the distances exactly
+(cosine = d^2/2, angle = acos(1 - d^2/2)).  Every other metric takes the
+exact ``linear_search`` in chunks of 4,096 queries.
 
 Appends to a built graph and the incremental ANNG build wait for ROADMAP
 Queue 1, M11.
@@ -29,7 +36,7 @@ from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops import window_scan as WS
 from ngt_tpu_torch.properties import DistanceType, GraphType, Property
 from ngt_tpu_torch.seeds import Seeder, default_reps
-from ngt_tpu_torch.store import VectorStore
+from ngt_tpu_torch.store import SQNORM_METRICS, VectorStore
 from ngt_tpu_torch.utils import narrow_host
 
 INF = float("inf")
@@ -101,10 +108,40 @@ def _upload(xh: np.ndarray, dev: torch.device, narrow: bool) -> torch.Tensor:
     return torch.from_numpy(narrow_host(xh) if narrow else xh).to(dev, copy=True)
 
 
+def _widen(x_narrow: torch.Tensor, xh: np.ndarray) -> torch.Tensor:
+    """The f32 working copy of a narrow upload of a float store; the rows
+    of a uint8 or sparse store keep their dtype (xor, popcount and id
+    lookups need integers)."""
+    if xh.dtype == np.float32 and x_narrow.dtype != torch.float32:
+        return x_narrow.to(torch.float32)
+    return x_narrow
+
+
+#: plain and normalized angular metrics: the scan runs on unit rows
+_ANGULAR_SCAN = (
+    DistanceType.COSINE, DistanceType.ANGLE,
+    DistanceType.NORMALIZED_COSINE, DistanceType.NORMALIZED_ANGLE,
+)
+#: metrics the bf16 scan serves: L2 ranking equals the metric's ranking
+_FAST_SCAN = (DistanceType.L2, DistanceType.NORMALIZED_L2) + _ANGULAR_SCAN
+#: queries per linear_search chunk of the other metrics' build scan
+LINEAR_QBLOCK = 4096
+
+
+def _l2_to_metric(d: torch.Tensor, metric) -> torch.Tensor:
+    """Unit-row L2 distances to the angular metric (exact); others as is."""
+    if metric in (DistanceType.COSINE, DistanceType.NORMALIZED_COSINE):
+        return 0.5 * d * d
+    if metric in (DistanceType.ANGLE, DistanceType.NORMALIZED_ANGLE):
+        return torch.acos(torch.clamp(1.0 - 0.5 * d * d, -1.0, 1.0))
+    return d
+
+
 class DeviceMirror:
     """Device copies of the object matrix and adjacency that the search
     reads (x [cap, d_pad] in the narrowest lossless dtype, valid [cap]
-    bool, nbr [cap, e_max] int32)."""
+    bool, nbr [cap, e_max] int32, and sqnorm [cap] f32 for the metrics
+    that read the row norms, else None)."""
 
     #: process-wide: a replaced mirror never repeats a version that an old
     #: mirror handed out
@@ -113,13 +150,16 @@ class DeviceMirror:
     def __init__(self, store: VectorStore, graph: GraphStore):
         self.store = store
         self.graph = graph
-        self.x = self.valid = self.nbr = None
+        self.x = self.valid = self.nbr = self.sqnorm = None
         self.capacity = 0
         #: bumped on every array replacement; derived caches (the quantized
         #: graph's neighbor blocks) key on it, not on id(self.nbr), which
         #: CPython may reuse once the old tensor is freed
         DeviceMirror._version_seed += 1_000_000
         self.version = DeviceMirror._version_seed
+
+    def _wants_sqnorm(self) -> bool:
+        return self.store.metric in SQNORM_METRICS
 
     def _search_valid(self) -> np.ndarray:
         # a search may only return indexed objects: live AND graph node
@@ -128,7 +168,7 @@ class DeviceMirror:
 
     def drop(self) -> None:
         """Forget the device arrays (stale once the graph changes)."""
-        self.x = self.valid = self.nbr = None
+        self.x = self.valid = self.nbr = self.sqnorm = None
         self.capacity = 0
         self.version += 1
 
@@ -139,17 +179,19 @@ class DeviceMirror:
         self.x = _upload(self.store._x, dev, _narrow_enabled())
         self.valid = torch.from_numpy(self._search_valid()).to(dev)
         self.nbr = torch.from_numpy(self.graph.nbr_ids[:cap]).to(dev, copy=True)
+        self.sqnorm = D.sq_norms(self.x) if self._wants_sqnorm() else None
         self.capacity = cap
         self.version += 1
 
-    def adopt(self, x: torch.Tensor, nbr: torch.Tensor,
+    def adopt(self, x: torch.Tensor, nbr: torch.Tensor, sqnorm: torch.Tensor | None,
               x_narrow: torch.Tensor | None = None) -> None:
         """Take the bulk build's device-resident arrays instead of
         uploading them again; the build's narrow copy ``x_narrow`` when it
-        kept one, else its f32 working copy ``x``."""
+        kept one, else its working copy ``x``."""
         self.graph.ensure_capacity(self.store._x.shape[0])
         self.x = x_narrow if x_narrow is not None and _narrow_enabled() else x
         self.nbr = nbr
+        self.sqnorm = sqnorm if self._wants_sqnorm() else None
         self.valid = torch.from_numpy(self._search_valid()).to(self.store.device)
         self.capacity = self.store._x.shape[0]
         self.version += 1
@@ -402,24 +444,46 @@ def build_bulk(
         return mirror
     dev = store.device
     mark = _Marks(dev)
+    metric = store.metric
     # the narrow upload is what the search mirror adopts; the scan holds a
-    # widened f32 working copy
+    # widened f32 working copy of a float store
     x_narrow = _upload(store._x, dev, narrow=True)
-    x = x_narrow if x_narrow.dtype == torch.float32 else x_narrow.to(torch.float32)
+    x = _widen(x_narrow, store._x)
     valid = torch.from_numpy(store._valid).to(dev, copy=True)
+    sqn = D.sq_norms(x) if mirror._wants_sqnorm() else None
     mark("upload")
-    scan_impl = (
-        "window"
-        if cap >= WINDOW_SCAN_MIN_ROWS and x.is_cuda and store.d_pad <= WS.D_MAX
-        else "blocked"
-    )
     pend = torch.from_numpy(pending).to(dev)
-    # kc = 2(k+1): any true top-(k+1) neighbor ranks <= k+1 within its own
-    # block, so a 2x window never loses it to bf16 noise
-    ids, dists = BF.fast_knn_l2_bulk(
-        pend, x, valid, D.sq_norms(x), k=k + 1, kc=2 * (k + 1),
-        qblock=4096, scan_impl=scan_impl,
-    )
+    if metric in _FAST_SCAN:
+        x_fast = x.to(torch.float32)
+        ang = metric in _ANGULAR_SCAN
+        if ang and not store.normalize:
+            # unit rows; the dummy slot, padding and freed rows stay zero
+            x_fast = D.normalize_rows(x_fast)
+        sqn_fast = sqn if sqn is not None and not ang else D.sq_norms(x_fast)
+        scan_impl = (
+            "window"
+            if cap >= WINDOW_SCAN_MIN_ROWS and x.is_cuda and store.d_pad <= WS.D_MAX
+            else "blocked"
+        )
+        # kc = 2(k+1): any true top-(k+1) neighbor ranks <= k+1 within its
+        # own block, so a 2x window never loses it to bf16 noise
+        ids, dists = BF.fast_knn_l2_bulk(
+            pend, x_fast, valid, sqn_fast, k=k + 1, kc=2 * (k + 1),
+            qblock=4096, scan_impl=scan_impl,
+        )
+        del x_fast, sqn_fast
+        dists = _l2_to_metric(dists, metric)
+    else:
+        parts = [
+            BF.linear_search(
+                torch.from_numpy(store._x[pending[i : i + LINEAR_QBLOCK]]).to(dev),
+                x, valid, metric, k + 1, x_sqnorm=sqn,
+            )
+            for i in range(0, len(pending), LINEAR_QBLOCK)
+        ]
+        ids = torch.cat([p[0] for p in parts])
+        dists = torch.cat([p[1] for p in parts])
+        del parts
     mark("scan")
     reverse = prop.graph_type != GraphType.KNNG
     nbr_dev, nbrd_dev, deg_dev = _bulk_graph_rows(
@@ -445,12 +509,12 @@ def build_bulk(
     mark("seeds")
     if reverse:
         _, nbr_dev = ensure_connected(
-            store, graph, seeder, store.metric, nbr_dev=nbr_dev,
+            store, graph, seeder, metric, nbr_dev=nbr_dev,
             first_labels=first_labels,
         )
     mark("connect")
     if nbr_dev is not None:
-        mirror.adopt(x, nbr_dev, x_narrow=x_narrow)
+        mirror.adopt(x, nbr_dev, sqn, x_narrow=x_narrow)
     else:
         mirror.sync_full()
     mark("mirror")

@@ -101,6 +101,7 @@ def graph_search(
     scorer=None,
     block_mode: bool = False,
     seed_x: torch.Tensor | None = None,
+    x_sqnorm: torch.Tensor | None = None,
 ) -> SearchResult:
     """One batched k-NN search over a fixed proximity graph.
 
@@ -113,6 +114,8 @@ def graph_search(
     * ``expand`` > 1 expands that many candidates per step: fewer steps,
       more distance computations;
     * ``scorer(queries, rows) -> [B, E]`` replaces the metric distance;
+    * ``x_sqnorm`` [N_pad]: the rows' squared norms, which the metric
+      distance reads (Cosine, Angle, Poincare) instead of recomputing;
     * ``block_mode``: ``x`` holds one block row [E_max * M] per node, the
       codes of its neighbors in adjacency order, so one row read per
       expanded node scores all its neighbors (the reference's QuantizedNode
@@ -135,13 +138,19 @@ def graph_search(
     bits = torch.from_numpy(_BITS).to(dev)
     rows = torch.arange(b, device=dev)
     if scorer is None:
-        def scorer(qs, xs):
-            return D.gathered(metric, qs, xs)
+        q_sq = D.sq_norms(queries) if x_sqnorm is not None else None
+
+        def score(xs, ids):
+            rows_sq = None if x_sqnorm is None else x_sqnorm[ids]
+            return D.gathered(metric, queries, xs, xs_sqnorm=rows_sq, q_sqnorm=q_sq)
+    else:
+        def score(xs, ids):
+            return scorer(queries, xs)
 
     # ---- seed scoring (reference setupSeeds, Graph.cpp:243-394)
     seed64 = seed_ids.to(torch.int64)
     seed_safe = seed64.clamp(0, n_pad - 1)
-    seed_d = scorer(queries, (seed_x if block_mode else x)[seed_safe])
+    seed_d = score((seed_x if block_mode else x)[seed_safe], seed_safe)
     seed_d = torch.where((seed64 >= 0) & valid[seed_safe], seed_d, INF)
     # a repeated seed id keeps its first occurrence only
     seed_d = torch.where(_repeats(seed64), INF, seed_d)
@@ -217,7 +226,7 @@ def graph_search(
             xs = x[cur_id].view(b, p, e_max, -1)[:, :, :e].reshape(b, p * e, -1)
         else:
             xs = x[nb_safe]
-        nd = scorer(queries, xs)
+        nd = score(xs, nb_safe)
         # admission: dist <= explorationRadius (Graph.cpp:605-607)
         nd = torch.where(ok & (nd <= er[:, None]), nd, INF)
         ni = torch.where(torch.isinf(nd), -1, nb)
@@ -264,15 +273,17 @@ def _repeats(ids: torch.Tensor, skip_negative: bool = False) -> torch.Tensor:
 def seeded_search(
     x, nbr, valid, rep_rows, rep_ids, queries, *, metric, k, s, epsilon=DEFAULT_EPSILON,
     radius=INF, edge_size=0, width=64, max_iters=0, hash_bits=16, exact_hash=False,
-    expand=1,
+    expand=1, x_sqnorm=None, rep_sq=None,
 ) -> SearchResult:
     """Seed scoring over the representative rows + graph search: the
-    reference's tree descent + graph search (Index.h:1524-1567)."""
-    si = top_seeds(D.seed_scores(metric, queries, rep_rows), s)
+    reference's tree descent + graph search (Index.h:1524-1567).
+    ``x_sqnorm`` and ``rep_sq`` are the rows' and the reps' squared norms
+    (ngt_tpu/graph/search.py:382-392)."""
+    si = top_seeds(D.seed_scores(metric, queries, rep_rows, rep_sq=rep_sq), s)
     seeds = rep_ids[si]
     return graph_search(
         x, nbr, valid, queries, seeds,
         metric=metric, k=k, epsilon=epsilon, radius=radius, width=width,
         edge_size=edge_size, max_iters=max_iters, hash_bits=hash_bits,
-        exact_hash=exact_hash, expand=expand,
+        exact_hash=exact_hash, expand=expand, x_sqnorm=x_sqnorm,
     )

@@ -10,10 +10,11 @@ files, ``seeds.npz``, ``meta.json``), so each package opens the other's
 indexes.
 
 Every entry point runs on ``device`` (default ``"cuda"``).  The port
-covers float32 objects under L2, the bulk build of a fresh index and both
-search routes: the exact-graph route, and the quantized-graph route
-(``quant/qgraph.py``) that ``batch_search`` takes with default properties
-at ``search_qg_threshold`` (5,000) nodes or more.  Anything else raises
+covers every metric and object type of the reference, the bulk build of a
+fresh index and both search routes: the exact-graph route, and the
+quantized-graph route (``quant/qgraph.py``) that ``batch_search`` takes
+with default properties at ``search_qg_threshold`` (5,000) nodes or more
+for the metrics its sq8 codes serve.  Anything else raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
@@ -38,7 +39,7 @@ from ngt_tpu_torch.properties import (
     resolve_object_type,
 )
 from ngt_tpu_torch.seeds import Seeder, default_reps
-from ngt_tpu_torch.store import VectorStore
+from ngt_tpu_torch.store import VectorStore, pad_sparse
 from ngt_tpu_torch.utils import logger
 
 FORMAT_VERSION = 1
@@ -117,6 +118,18 @@ class Index:
         self._mirror = build_bulk(
             self.store, self.graph, self.seeder, self.prop, pending, self._mirror,
         )
+
+    def make_sparse_object(self, ids) -> np.ndarray:
+        """Pack a feature-id set for a Sparse-Jaccard index (the analogue of
+        Index::makeSparseObject, Index.cpp:303-320)."""
+        return pad_sparse([ids], self.store.dimension)[0]
+
+    def insert_sparse(self, ids) -> int:
+        return self.insert(self.make_sparse_object(ids))
+
+    def _qdtype(self):
+        """Query dtype on the host: id sets for a sparse store."""
+        return np.int64 if self.store.sparse else np.float32
 
     def get_object(self, external_id: int) -> np.ndarray:
         return self.store.get(int(external_id) + (1 if self.zero_based else 0))
@@ -232,7 +245,7 @@ class Index:
                     "search_fallback='exact' to serve on the exact route"
                 )
         mirror = self._ensure_mirror()
-        q = self.store.prepare_queries(np.asarray(queries, dtype=np.float32))
+        q = self.store.prepare_queries(np.asarray(queries, dtype=self._qdtype()))
         b = q.shape[0]
         if self.seeder.num_reps == 0 and self.graph.node_count() > 0:
             live = np.nonzero(self.graph._has_node)[0].astype(np.int32)
@@ -253,6 +266,8 @@ class Index:
             res = seeded_search(
                 mirror.x, mirror.nbr, mirror.valid,
                 self.seeder._rep_rows, self.seeder._rep_ids_dev, q,
+                x_sqnorm=mirror.sqnorm,
+                rep_sq=self.seeder._rep_sq if mirror.sqnorm is not None else None,
                 metric=self.store.metric, k=kk, s=int(self.prop.seed_size),
                 epsilon=epsilon, radius=radius, edge_size=e,
                 width=width if width > 0 else self._auto_width(kk, epsilon),
@@ -275,7 +290,7 @@ class Index:
         """Single-query search returning [(id, dist)] like ngtpy
         (ngtpy.cpp:172-240)."""
         ids, dists = self.batch_search(
-            np.asarray(query, dtype=np.float32)[None, :], size=size,
+            np.asarray(query, dtype=self._qdtype())[None, :], size=size,
             epsilon=epsilon, radius=radius, edge_size=edge_size,
         )
         out = [
@@ -289,7 +304,7 @@ class Index:
         """Exact batched top-k — also the ground-truth generator of the
         recall harness (the reference generates GT with `ngt search -i s`)."""
         x, valid, sqn = self.store.device_arrays()
-        q = self.store.prepare_queries(np.asarray(queries, dtype=np.float32))
+        q = self.store.prepare_queries(np.asarray(queries, dtype=self._qdtype()))
         ids, dists = BF.linear_search(
             q, x, valid, self.store.metric, int(size), x_sqnorm=sqn
         )
@@ -297,7 +312,8 @@ class Index:
 
     def linear_search(self, query, size: int = 10):
         """Exact search (ngtpy linear_search; ObjectSpaceRepository.h:466)."""
-        ids, dists = self.batch_linear_search(np.asarray(query)[None, :], size)
+        ids, dists = self.batch_linear_search(
+            np.asarray(query, dtype=self._qdtype())[None, :], size)
         return [
             (int(i), float(d))
             for i, d in zip(ids[0], dists[0])

@@ -14,6 +14,7 @@ import torch
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops.select import topk_lex
 from ngt_tpu_torch.ops.window_scan import BIG, window_scan
+from ngt_tpu_torch.properties import DistanceType
 
 _F32 = torch.float32
 INF = float("inf")
@@ -32,11 +33,32 @@ def _pad_rows(t: torch.Tensor, n_pad: int, value=0) -> torch.Tensor:
     return torch.cat([t, pad])
 
 
+#: bytes the per-block temporaries of ``linear_search`` may hold
+BLOCK_BYTES = 1 << 30
+
+
+def block_rows(metric, b: int, d: int, block: int = 65536) -> int:
+    """Corpus rows per ``linear_search`` block: ``block`` at most, fewer
+    where the [B, rows] tile and its temporaries would pass BLOCK_BYTES
+    (a multiple of 128 rows, at least 128).  The distance functions hold
+    per (query, row) about 32 bytes of f32 tiles and selection keys; the
+    bit unpack of Hamming and Jaccard holds 32 bytes per row byte (sparse
+    Jaccard bounds its own lookups, ``distances._BLOCK_BYTES``)."""
+    metric = DistanceType(metric)
+    per_pair = 32
+    per_row = 4 * d + (32 * d if metric in D.BITWISE_METRICS else 0)
+    rows = BLOCK_BYTES // max(b * per_pair + per_row, 1)
+    return int(min(block, max(128, rows // 128 * 128)))
+
+
 def linear_search(queries, x, valid, metric, k: int, x_sqnorm=None,
                   block: int = 65536):
     """Exact top-k. Returns (ids [B,k] int32, dists [B,k] f32), ascending;
-    empty slots are (-1, +inf).  Blocked over N with a running merge."""
+    empty slots are (-1, +inf).  Blocked over N (``block`` rows at most,
+    fewer where ``block_rows`` bounds the bytes) with a running merge; the
+    block size does not change the result."""
     n, b = x.shape[0], queries.shape[0]
+    block = block_rows(metric, b, x.shape[1], block)
     best_d = torch.full((b, k), INF, dtype=_F32, device=x.device)
     best_i = torch.full((b, k), -1, dtype=torch.int32, device=x.device)
     for s in range(0, n, block):
@@ -53,6 +75,36 @@ def linear_search(queries, x, valid, metric, k: int, x_sqnorm=None,
         )
     best_i = torch.where(torch.isinf(best_d), -1, best_i)
     return best_i.to(torch.int32), best_d
+
+
+def fast_knn_l2(queries, x, valid, x_sqnorm, k: int, kc: int = 0,
+                block: int = 65536):
+    """Exact L2 top-k of arbitrary queries by a bf16 scan and an f32
+    re-rank: per corpus block a bf16 score tile (f32 products and sums)
+    merged into the running top-kc, then the kc candidates re-ranked
+    exactly.  bf16's relative error never pushes a true neighbor out of
+    a 4x-wide candidate set.  Returns (ids [B,k] int32, dists [B,k] f32)."""
+    b, n = queries.shape[0], x.shape[0]
+    kc = kc if kc > 0 else 4 * k
+    q16 = queries.to(torch.bfloat16).to(_F32)
+    q_sq = (queries.to(_F32) ** 2).sum(-1)
+    cd = torch.full((b, kc), INF, dtype=_F32, device=x.device)
+    ci = torch.full((b, kc), -1, dtype=torch.int32, device=x.device)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        dot = q16 @ x[s:e].to(torch.bfloat16).to(_F32).T
+        d2 = q_sq[:, None] + x_sqnorm[None, s:e] - 2.0 * dot
+        d2 = torch.where(valid[None, s:e], d2, INF)
+        ids = torch.arange(s, e, dtype=torch.int32, device=x.device)
+        cd, ci = topk_lex(torch.cat([cd, d2], 1),
+                          torch.cat([ci, ids[None, :].expand(b, -1)], 1), kc)
+    ci = torch.where(torch.isinf(cd), -1, ci)
+    rows = x[ci.to(torch.int64).clamp(0, n - 1)].to(_F32)
+    diff = rows - queries.to(_F32)[:, None, :]
+    dd = torch.where(ci >= 0, (diff * diff).sum(-1), INF)
+    sd, si = topk_lex(dd, ci, k)
+    return (torch.where(torch.isinf(sd), -1, si).to(torch.int32),
+            torch.sqrt(torch.clamp(sd, min=0.0)))
 
 
 def center_rows(x, valid, x_sqnorm):

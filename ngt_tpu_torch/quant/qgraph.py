@@ -10,7 +10,11 @@ at once, then re-ranks the expanded candidates exactly
 * codes are ``sq8``: int8 with ONE global scale, so scaled L2 over the
   codes ranks exactly like L2 over the quantized vectors.  An integral
   corpus (u8 narrow mirror) skips quantization: its codes ARE the mirror
-  tensor, scale 1.0, and the traversal scores exact distances;
+  tensor, scale 1.0, and the traversal scores exact distances.  Plain
+  Cosine and Angle (rows stored un-normalized) encode the row-normalized
+  vectors and traverse with normalized queries: on unit rows L2 ranks
+  like the angle; the exact re-rank then scores the raw mirror with the
+  true metric;
 * each node owns one block row ``[eb * M]``: the codes of its first ``eb``
   neighbors, so one row read per expanded node scores every neighbor
   (block-mode ``graph.search.graph_search``);
@@ -86,6 +90,20 @@ def _pos_topk(d: torch.Tensor, k: int):
     return dd, sel.to(torch.int64)
 
 
+def _normalizes(metric) -> bool:
+    """Plain angular metrics: their sq8 codes are built from unit rows."""
+    return metric in D.ANGULAR_METRICS
+
+
+def _sq8_rows(metric, x_rows: np.ndarray) -> np.ndarray:
+    """Host rows the sq8 codes are built from: row-normalized for the plain
+    angular metrics."""
+    if _normalizes(metric):
+        nrm = np.linalg.norm(x_rows, axis=1, keepdims=True)
+        return x_rows / np.maximum(nrm, 1e-30)
+    return x_rows
+
+
 def _rerank_body(x, queries, cand_ids, cand_ok, metric, k):
     """Re-rank candidate ids exactly (the reference's resultExpansion
     re-rank, QuantizedGraph.h:270-299)."""
@@ -121,18 +139,20 @@ def _tail_refine_body(x, codes, nbr_full, valid, q, qdv, pool_ids, ids1, *,
 
 
 def _qg_fused_search(
-    blocks, nbr_eb, valid, codes, x, rep_rows, rep_ids, q, sq_scale, epsilon,
-    edge_limit, nbr_full, *, metric, k, k_exp, s, width, hash_bits,
-    exact_hash, expand, refine=0, eb=0, kr=0,
+    blocks, nbr_eb, valid, codes, x, rep_rows, rep_sq, rep_ids, q, sq_scale,
+    epsilon, edge_limit, nbr_full, *, metric, k, k_exp, s, width, hash_bits,
+    exact_hash, expand, normalize_q, refine=0, eb=0, kr=0,
 ):
-    """Seed selection, the sq8 block traversal (queries scaled by
-    1/scale), the exact re-rank over the mirror and the edge-tail refine,
-    for one chunk of prepared queries ``q`` [B, D_pad] f32."""
+    """Seed selection, the sq8 block traversal (queries normalized when
+    ``normalize_q``, then scaled by 1/scale), the exact re-rank over the
+    mirror and the edge-tail refine, for one chunk of prepared queries
+    ``q`` [B, D_pad] f32."""
     dev = q.device
     with _stage("seeds", dev):
-        seeds = rep_ids[top_seeds(D.seed_scores(metric, q, rep_rows), s)]
+        sd = D.seed_scores(metric, q, rep_rows, rep_sq=rep_sq)
+        seeds = rep_ids[top_seeds(sd, s)]
     with _stage("traverse", dev):
-        qt = q / torch.tensor(sq_scale, dtype=_F32)
+        qt = (D.normalize_rows(q) if normalize_q else q) / torch.tensor(sq_scale, dtype=_F32)
         res = graph_search(
             blocks, nbr_eb, valid, qt, seeds,
             metric=DistanceType.L2, k=k_exp, k_radius=kr if kr > 0 else k,
@@ -198,12 +218,14 @@ class QuantizedGraphIndex:
         """Encode straight from the device mirror.  The scale is the
         largest |component| of the live rows over 127 (a Python double);
         codes are round(x * float32(1/scale)) clipped to +-127, dead rows
-        0."""
+        0; the plain angular metrics encode the row-normalized rows, so
+        their codes are never the u8 mirror."""
         store = index.store
         d_pad = store.d_pad
         mirror = index._ensure_mirror()
         cap = store._x.shape[0]
-        if mirror.x.dtype == torch.uint8:
+        normalize = _normalizes(store.metric)
+        if not normalize and mirror.x.dtype == torch.uint8:
             # integral corpus, narrow mirror: the codes ARE the corpus
             self = cls(index, np.zeros((cap, d_pad), np.uint8), sq_scale=1.0)
             self._codes_dev = mirror.x
@@ -213,8 +235,9 @@ class QuantizedGraphIndex:
         step = cls.DEV_ENCODE_CHUNK
 
         def rows(i):
+            xr = mirror.x[i : i + step].to(_F32)
             return torch.where(valid[i : i + step, None],
-                               mirror.x[i : i + step].to(_F32), 0.0)
+                               D.normalize_rows(xr) if normalize else xr, 0.0)
 
         scale = max(float(rows(i).abs().max()) for i in range(0, cap, step)) / 127.0
         scale = max(scale, 1e-30)
@@ -233,7 +256,7 @@ class QuantizedGraphIndex:
         """sq8 codes for ``index``; ``mode="auto"`` picks the format by the
         block budget (``pick_mode``).  NGT_TPU_QG_HOST_QUANTIZE=1 encodes on
         the host instead (rows divided by the scale; int8 codes even for an
-        integral corpus)."""
+        integral corpus; unit rows for the plain angular metrics)."""
         store = index.store
         if mode == "auto":
             mode = cls.pick_mode(store._x.shape[0], store.d_pad)
@@ -244,7 +267,7 @@ class QuantizedGraphIndex:
                 return cls._quantize_device(index)
         n = store.repository_size
         live = store._valid[:n]
-        rows = store._x[:n][live].astype(np.float32)
+        rows = _sq8_rows(store.metric, store._x[:n][live].astype(np.float32))
         scale = float(np.abs(rows).max()) / 127.0 if live.any() else 1.0
         scale = scale or 1.0
         codes = np.zeros((store._x.shape[0], store.d_pad), np.int8)
@@ -262,6 +285,7 @@ class QuantizedGraphIndex:
             ):
                 return np.rint(x_live).astype(np.uint8)
             self.codes = self.codes.astype(np.int8)
+        x_live = _sq8_rows(self.index.store.metric, x_live)
         peak = float(np.abs(x_live).max()) if len(x_live) else 1.0
         if peak > 127.0 * self.sq_scale:
             self.sq_scale = peak / 127.0
@@ -401,6 +425,7 @@ class QuantizedGraphIndex:
             width=width if width > 0 else max(64, 2 * k_exp),
             hash_bits=bits, exact_hash=exact,
             expand=expand if expand > 0 else max(idx.prop.search_expand, 1),
+            normalize_q=_normalizes(idx.store.metric),
             refine=self._resolve_refine(mirror.nbr.shape[1], eb),
             eb=int(eb), kr=int(kr),
         )
@@ -418,7 +443,7 @@ class QuantizedGraphIndex:
             qd = torch.from_numpy(idx.store.prepare_queries_host(qc)).to(idx.store.device)
             outs.append(_qg_fused_search(
                 blocks, nbr_eb, mirror.valid, codes, mirror.x,
-                seeder._rep_rows, seeder._rep_ids_dev, qd, self.sq_scale,
+                seeder._rep_rows, seeder._rep_sq, seeder._rep_ids_dev, qd, self.sq_scale,
                 epsilon, e, mirror.nbr, **kw,
             ))
         ids = torch.cat([o[0] for o in outs])[:b0].cpu().numpy()

@@ -35,6 +35,9 @@ class Seeder:
         self.device = torch.device(device)
         self.rep_ids: np.ndarray = np.zeros((0,), np.int32)
         self._rep_rows: torch.Tensor | None = None
+        #: the rep rows' squared norms: the angular seed scores divide by
+        #: them, the exotic metrics' exact scores read them
+        self._rep_sq: torch.Tensor | None = None
         self._rep_ids_dev: torch.Tensor | None = None
         self._rng = np.random.default_rng(0x5EED)
 
@@ -47,7 +50,7 @@ class Seeder:
         live_ids = np.asarray(live_ids)
         if len(live_ids) == 0:
             self.rep_ids = np.zeros((0,), np.int32)
-            self._rep_rows = self._rep_ids_dev = None
+            self._rep_rows = self._rep_sq = self._rep_ids_dev = None
             return
         num = int(min(max(num_reps, 1), len(live_ids)))
         sel = (
@@ -71,6 +74,7 @@ class Seeder:
         self._rep_rows = torch.from_numpy(
             np.ascontiguousarray(x_host[self.rep_ids])
         ).to(self.device)
+        self._rep_sq = D.sq_norms(self._rep_rows)
         self._rep_ids_dev = torch.from_numpy(self.rep_ids).to(self.device, copy=True)
 
     def verify(self, live_mask: np.ndarray, x_host: np.ndarray) -> list:
@@ -102,7 +106,9 @@ class Seeder:
         b = queries.shape[0]
         if self._rep_rows is None or self.num_reps == 0:
             return torch.full((b, s), -1, dtype=torch.int32, device=queries.device)
-        idx = top_seeds(D.seed_scores(self.metric, queries, self._rep_rows), s)
+        idx = top_seeds(
+            D.seed_scores(self.metric, queries, self._rep_rows, rep_sq=self._rep_sq), s
+        )
         ids = self._rep_ids_dev[idx]
         if ids.shape[1] < s:
             ids = torch.cat([ids, ids.new_full((b, s - ids.shape[1]), -1)], 1)

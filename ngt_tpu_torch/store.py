@@ -9,11 +9,15 @@ are kept, so the saved arrays equal the JAX package's:
   validity mask keeps it (and removed rows) out of every search;
 * removed ids go to a free list reused by later inserts
   (``Repository::removedList``, Common.h:1747-1774);
-* the feature dim is zero-padded to a multiple of 128 (``d_pad``; the
-  analogue of ``getPaddedDimension``, ObjectSpace.h:249).
+* the Normalized* metrics L2-normalize at insertion
+  (ObjectSpaceRepository.h:560-618); Cosine and Angle store raw rows;
+* the feature dim is padded to a multiple of 128 (``d_pad``; the analogue
+  of ``getPaddedDimension``, ObjectSpace.h:249): zeros for dense rows, -1
+  for the sorted int32 id sets of a Sparse-Jaccard store.
 
-This slice stores float32 objects under the L2 metric; other object types
-and metrics raise ``NotImplementedError`` (ROADMAP Queue 1, M2/M3).
+Object types: FLOAT rows are float32, UINT8 rows uint8 (bit patterns for
+Hamming and Jaccard); BFLOAT16 keeps a float32 host copy, and only the
+store's own device copy (what linear search reads) is rounded to bf16.
 """
 
 from __future__ import annotations
@@ -26,13 +30,38 @@ import torch
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops.bruteforce import pad_dim
 from ngt_tpu_torch.properties import DistanceType, ObjectType
+from ngt_tpu_torch.utils import narrow_host
+
+
+_OBJECT_DTYPES = {
+    ObjectType.FLOAT: np.float32,
+    ObjectType.UINT8: np.uint8,
+    ObjectType.BFLOAT16: np.float32,  # host copy in f32; device copy bf16
+}
+
+#: metrics whose device arrays (the store's and the search mirror's) carry
+#: the row squared norms
+SQNORM_METRICS = (
+    DistanceType.L2, DistanceType.COSINE, DistanceType.ANGLE, DistanceType.POINCARE,
+)
+
+
+def pad_sparse(id_lists, dimension: int) -> np.ndarray:
+    """Pack variable-length feature-id sets into a sorted, -1-padded int32
+    matrix (the analogue of ``Index::makeSparseObject``,
+    Index.cpp:303-320)."""
+    out = np.full((len(id_lists), dimension), -1, np.int32)
+    for i, ids in enumerate(id_lists):
+        ids = sorted(int(v) for v in ids)
+        if len(ids) > dimension:
+            raise ValueError(
+                f"sparse object has {len(ids)} ids; index dimension is {dimension}"
+            )
+        out[i, : len(ids)] = ids
+    return out
 
 
 class VectorStore:
-    #: sparse id-set rows (SPARSE_JACCARD) are not ported (ROADMAP M3): the
-    #: port's store is always dense
-    sparse = False
-
     def __init__(
         self,
         dimension: int,
@@ -43,19 +72,19 @@ class VectorStore:
     ):
         if dimension <= 0:
             raise ValueError("dimension must be positive")
-        if ObjectType(object_type) != ObjectType.FLOAT:
-            raise NotImplementedError(
-                f"object type {ObjectType(object_type).name} is not ported "
-                "yet (ROADMAP Queue 1, M3)"
-            )
-        D._check_metric(metric)
         self.dimension = int(dimension)
         self.metric = DistanceType(metric)
         self.object_type = ObjectType(object_type)
         self.d_pad = pad_dim(dimension)
         self.device = torch.device(device)
+        #: Sparse-Jaccard objects are sorted feature-id sets (int32, -1 pad)
+        self.sparse = self.metric == DistanceType.SPARSE_JACCARD
+        self._dtype = np.int32 if self.sparse else _OBJECT_DTYPES[self.object_type]
+        self._pad_value = -1 if self.sparse else 0
+        #: the Normalized* metrics store unit rows (Cosine and Angle do not)
+        self.normalize = D.needs_normalization(self.metric)
         cap = max(int(capacity), 16)
-        self._x = np.zeros((cap, self.d_pad), dtype=np.float32)
+        self._x = np.full((cap, self.d_pad), self._pad_value, dtype=self._dtype)
         self._valid = np.zeros((cap,), dtype=bool)
         self._size = 1  # next fresh slot; slot 0 is the dummy
         self._free: list[int] = []  # min-heap of reusable ids
@@ -63,8 +92,8 @@ class VectorStore:
         self._device_valid: torch.Tensor | None = None
         self._device_sqnorm: torch.Tensor | None = None
         self._dirty = True
-        #: bumped on every insert, so derived structures (the quantized
-        #: codes) detect staleness without holding array references
+        #: bumped on every insert and removal, so derived structures (the
+        #: quantized codes) detect staleness without holding array references
         self.mutation_count = 0
 
     # ----------------------------------------------------------- sizing ----
@@ -83,7 +112,7 @@ class VectorStore:
         cap = self._x.shape[0]
         while cap < n:
             cap *= 2
-        x = np.zeros((cap, self.d_pad), dtype=np.float32)
+        x = np.full((cap, self.d_pad), self._pad_value, dtype=self._dtype)
         x[: self._x.shape[0]] = self._x
         self._x = x
         valid = np.zeros((cap,), dtype=bool)
@@ -96,12 +125,30 @@ class VectorStore:
         v = np.asarray(v)
         if v.ndim == 1:
             v = v[None, :]
+        if self.sparse:
+            # -1-padded sorted id sets of width <= dimension
+            if v.shape[-1] > self.dimension:
+                raise ValueError(
+                    f"sparse width {v.shape[-1]} exceeds dimension {self.dimension}"
+                )
+            big = np.iinfo(np.int32).max
+            out = np.full((v.shape[0], self.d_pad), -1, np.int32)
+            out[:, : v.shape[-1]] = np.sort(np.where(v < 0, big, v), axis=-1)
+            out[out == big] = -1
+            return out
         if v.shape[-1] != self.dimension:
             raise ValueError(
                 f"dimension mismatch: got {v.shape[-1]}, want {self.dimension}"
             )
-        out = np.zeros((v.shape[0], self.d_pad), dtype=np.float32)
-        out[:, : self.dimension] = v.astype(np.float32)
+        out = np.zeros((v.shape[0], self.d_pad), dtype=self._dtype)
+        if self.normalize:
+            vf = v.astype(np.float64)
+            norms = np.linalg.norm(vf, axis=-1, keepdims=True)
+            if np.any(norms == 0):
+                raise ValueError("cannot normalize a zero vector")
+            out[:, : self.dimension] = (vf / norms).astype(self._dtype)
+        else:
+            out[:, : self.dimension] = v.astype(self._dtype)
         return out
 
     def insert(self, v: np.ndarray) -> int:
@@ -129,22 +176,44 @@ class VectorStore:
         self.mutation_count += 1
         return ids
 
+    def remove(self, oid: int) -> None:
+        """Free ``oid``'s slot for reuse (Common.h:1761-1774)."""
+        if not self.contains(oid):
+            raise KeyError(f"no such object id: {oid}")
+        self._valid[oid] = False
+        self._x[oid] = self._pad_value
+        heapq.heappush(self._free, int(oid))
+        self._dirty = True
+        self.mutation_count += 1
+
     def get(self, oid: int) -> np.ndarray:
-        if not (0 < oid < self._size) or not self._valid[oid]:
+        if not self.contains(oid):
             raise KeyError(f"no such object id: {oid}")
         return np.array(self._x[oid, : self.dimension])
 
+    def contains(self, oid: int) -> bool:
+        return 0 < oid < self._size and bool(self._valid[oid])
+
     # ------------------------------------------------------------ device ----
     def device_arrays(self):
-        """(x [cap, d_pad] f32, valid [cap] bool, sqnorm [cap] f32) on the
-        store's device, re-uploaded whole when the host copy changed."""
+        """(x [cap, d_pad], valid [cap] bool, sqnorm [cap] f32 or None) on
+        the store's device, re-uploaded whole when the host copy changed.
+        x is bf16 for a BFLOAT16 store, else the narrowest lossless dtype
+        (every distance casts to f32, so results are equal); sqnorm is kept
+        for L2, Cosine, Angle and Poincare."""
         if self._dirty or self._device_x is None:
-            # copy=True: on the CPU a plain .to() would alias the host arrays
-            self._device_x = torch.from_numpy(self._x).to(self.device, copy=True)
+            if self.object_type == ObjectType.BFLOAT16:
+                dx = torch.from_numpy(self._x).to(self.device).to(torch.bfloat16)
+            else:
+                # copy=True: on the CPU a plain .to() would alias the host array
+                dx = torch.from_numpy(narrow_host(self._x)).to(self.device, copy=True)
+            self._device_x = dx
             self._device_valid = torch.from_numpy(self._valid).to(
                 self.device, copy=True
             )
-            self._device_sqnorm = D.sq_norms(self._device_x)
+            self._device_sqnorm = (
+                D.sq_norms(dx) if self.metric in SQNORM_METRICS else None
+            )
             self._dirty = False
         return self._device_x, self._device_valid, self._device_sqnorm
 
@@ -154,7 +223,9 @@ class VectorStore:
         self._dirty = True
 
     def prepare_queries_host(self, q: np.ndarray) -> np.ndarray:
-        """Pad queries on the host like stored objects."""
+        """Pad (and for the Normalized* metrics normalize) dense queries on
+        the host like stored objects (ObjectSpaceRepository.h:560-618); a
+        zero query keeps norm 1."""
         q = np.asarray(q, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -162,13 +233,22 @@ class VectorStore:
             raise ValueError(
                 f"query dimension mismatch: got {q.shape[-1]}, want {self.dimension}"
             )
-        out = np.zeros((q.shape[0], self.d_pad), dtype=np.float32)
-        out[:, : self.dimension] = q
+        if self.normalize:
+            norms = np.linalg.norm(q, axis=-1, keepdims=True)
+            norms[norms == 0] = 1.0
+            q = q / norms
+        out = np.zeros((q.shape[0], self.d_pad), dtype=self._dtype)
+        out[:, : self.dimension] = q.astype(self._dtype)
         return out
 
     def prepare_queries(self, q: np.ndarray) -> torch.Tensor:
-        """Host prep + device upload (see prepare_queries_host)."""
-        return torch.from_numpy(self.prepare_queries_host(q)).to(self.device)
+        """Host prep + device upload (see prepare_queries_host); a sparse
+        store takes id sets and packs them like stored objects."""
+        if self.sparse:
+            host = self._prepare(np.asarray(q, dtype=np.int64))
+        else:
+            host = self.prepare_queries_host(q)
+        return torch.from_numpy(host).to(self.device)
 
     # -------------------------------------------------------- persistence ----
     def state_dict(self) -> dict:

@@ -1,5 +1,6 @@
 """CUDA-only tests of the port: each hand kernel against its plain torch
-version on the card.  They carry the ``gpu`` marker and skip where no card
+version on the card, and the distances of every metric on the card against
+the CPU.  They carry the ``gpu`` marker and skip where no card
 is present (decided inside the test, never at import).  This file imports
 neither JAX nor the JAX package, so it also runs on a machine that has only
 torch:  python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
@@ -185,3 +186,63 @@ def test_rerank_orders_ties_by_position_on_the_card(cuda):
     t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
     ids, _ = _rerank_body(t(x), t(q), t(cand), t(ok), DistanceType.L2, 10)
     np.testing.assert_array_equal(ids.cpu().numpy(), want)
+
+
+def _metric_rows(metric, n, d, rng):
+    from ngt_tpu_torch.ops import distances as TD
+    from ngt_tpu_torch.properties import DistanceType as DT
+    from ngt_tpu_torch.store import pad_sparse
+
+    if metric in TD.BITWISE_METRICS:
+        return rng.integers(0, 256, (n, d), dtype=np.uint8)
+    if metric == DT.SPARSE_JACCARD:
+        return pad_sparse([rng.choice(4 * d, rng.integers(1, d // 2), replace=False)
+                           for _ in range(n)], d)
+    if metric == DT.POINCARE:
+        x = rng.normal(size=(n, d))
+        return (x / (np.linalg.norm(x, axis=1, keepdims=True) * 2.0)).astype(np.float32)
+    if metric == DT.LORENTZ:
+        sp = rng.normal(size=(n, d - 1)) * 0.4
+        return np.concatenate([np.sqrt(1.0 + (sp**2).sum(1, keepdims=True)), sp],
+                              1).astype(np.float32)
+    x = rng.normal(size=(n, d))
+    if metric in TD.NORMALIZED_METRICS:
+        x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("metric", list(range(12)))
+def test_metric_distances_on_the_card_match_cpu(cuda, metric):
+    """pairwise, gathered and linear_search of every metric on the card
+    against the CPU: counts exactly, the rest to rtol 1e-5 (the angle and
+    hyperbolic metrics in their acos/acosh argument), ids on >= 99.9%."""
+    from ngt_tpu_torch.ops import bruteforce as TB
+    from ngt_tpu_torch.ops import distances as TD
+    from ngt_tpu_torch.properties import DistanceType as DT
+
+    metric = [m for m in DT if m != DT.NONE][metric]
+    rng = np.random.default_rng(int(metric) + 3)
+    x = _metric_rows(metric, 3000, 128, rng)
+    q = _metric_rows(metric, 64, 128, rng)
+    xs = x[rng.integers(0, 3000, (64, 40))]
+    exact = metric in TD.BITWISE_METRICS or metric == DT.SPARSE_JACCARD
+
+    def close(a, b):
+        a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+        if metric in (DT.ANGLE, DT.NORMALIZED_ANGLE):
+            a, b = np.cos(a), np.cos(b)
+        elif metric in (DT.POINCARE, DT.LORENTZ):
+            a, b = np.cosh(a), np.cosh(b)
+        if exact:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+    tq, tx, txs = (torch.from_numpy(a) for a in (q, x, xs))
+    close(TD.pairwise(metric, tq.to(cuda), tx.to(cuda)), TD.pairwise(metric, tq, tx))
+    close(TD.gathered(metric, tq.to(cuda), txs.to(cuda)), TD.gathered(metric, tq, txs))
+    valid = torch.ones(3000, dtype=torch.bool)
+    gi, gd = TB.linear_search(tq.to(cuda), tx.to(cuda), valid.to(cuda), metric, 10, block=1024)
+    ci, cd = TB.linear_search(tq, tx, valid, metric, 10)
+    close(gd, cd)
+    assert (gi.cpu() == ci).double().mean() >= 0.999

@@ -104,8 +104,8 @@ def test_unported_routes_raise(data, monkeypatch):
         t.batch_search(base[:2])
     with pytest.raises(NotImplementedError, match="M11"):
         t.batch_insert(base[:5])            # append to a built graph
-    with pytest.raises(NotImplementedError, match="M2"):
-        ngt_tpu_torch.create(None, dimension=DIM, distance_type="Cosine", device="cpu")
+    with pytest.raises(NotImplementedError, match="M14"):
+        t.batch_search(base[:2], expected_accuracy=0.9)
 
 
 def _legacy_dir(jax_index, path):
