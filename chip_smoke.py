@@ -7,7 +7,8 @@ Drives the port's main path at 1M x 128 float32 — ``create`` with default
 properties -> ``batch_insert(build=True)`` (the bulk build, whose candidate
 scan runs the hand-written window-scan kernel) -> ``batch_search``, which
 takes the quantized-graph (qg) route at this size — then the exact-graph
-route on the same index, and checks each result:
+route on the same index, then appends to and removals from the same live
+index, and checks each result:
 
  1. device: the card's name and power limit;
  2. build of the CUDA kernels from ``ngt_tpu_torch/csrc`` (plain nvcc): its
@@ -61,7 +62,28 @@ route on the same index, and checks each result:
     and exact-route ids on >= 99.9% of entries; for the metrics the qg
     route serves, its ids on >= 99.9% of entries, the sq8 scale to 1e-6
     relative and the codes equal on >= 99.99% of entries, never more than
-    1 apart.
+    1 apart;
+14. the live index, run right after phase 9 on phase 5's index (capacity
+    2^20, so nothing grows it): a bulk append of 40,000 rows of the same
+    clusters from a second stream (``batch_insert(build=True)``, default
+    properties: the bulk append route, whose scan runs the window-scan
+    kernel 10 times; its NGT_TPU_BUILD_PROFILE phases; one connected
+    component after it); ``batch_remove`` of 10,000 ids of base and
+    appended rows alike, then 16 single ``remove`` calls (seconds, rows
+    changed); an incremental append of 2,048 rows (``build_anng``: two
+    batches of 1,024 into freed slots; seconds and graph_search steps per
+    batch); then ``verify() == []``, ``check_graph``, the qg route of
+    default properties in one chunk of the 10,000 held-out queries with
+    the stage timer on (the codes and blocks must rebuild): recall@10
+    above QG_RECALL_FLOOR against the card's exact linear search over the
+    live rows, no removed id in any result, at least SELF_HIT_FLOOR of
+    1,000 bulk-appended and of 1,000 incrementally appended rows find
+    themselves first; save + open_index: identical exact-route ids;
+15. card against CPU for the mutation paths at 8,192 rows (the phase 11
+    generator): bulk build, a ``build_anng`` append of 2,048 rows,
+    ``batch_remove`` of 512, a bulk append of 4,096, each on the card and
+    on the CPU port: adjacency and exact-route ids on >= 99.9% of entries
+    after each step.
 
 It prints a few dozen short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
@@ -109,6 +131,10 @@ N_GLOVE, N_GLOVE_Q, GLOVE_DIM = 1_000_000, 8192, 100
 COSINE_QG_RECALL_FLOOR = 0.97
 #: rows and queries of each index of phase 13
 N_METRIC, N_METRIC_Q, METRIC_DIM = 4096, 256, 64
+#: phase 14, the live index: rows of the bulk append (of sift_proxy's
+#: clusters, a second stream), ids of the batch removal and of the single
+#: removals, rows of the incremental append (two batches of 1,024)
+N_APPEND, N_REMOVE, N_SINGLE, N_INCR = 40_000, 10_000, 16, 2048
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM bytes/s
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
@@ -121,10 +147,14 @@ def log(msg: str) -> None:
     print(f"[{time.time() - _T0:7.1f} s] {msg}", flush=True)
 
 
-def sift_proxy(n: int, d: int = DIM, seed: int = SEED, kc: int = 2048) -> np.ndarray:
+def sift_proxy(n: int, d: int = DIM, seed: int = SEED, kc: int = 2048,
+               extra: int = 0, extra_seed: int = 0):
     """A SIFT-shaped clustered corpus: a power-law spectrum (i^-0.4) under a
     random rotation, Zipf(1.05) cluster sizes, shifted non-negative, rows
-    shuffled (the recipe of bench.py's gist_proxy, at d = 128)."""
+    shuffled (the recipe of bench.py's gist_proxy, at d = 128).  With
+    ``extra`` > 0 it also returns that many further rows of the same
+    clusters and shift, drawn from a second stream (``extra_seed``), so
+    the first n rows do not change."""
     rng = np.random.default_rng(seed)
     v = np.linalg.qr(rng.normal(size=(d, d)))[0].astype(np.float32)
     s = np.arange(1, d + 1, dtype=np.float32) ** -0.4
@@ -139,8 +169,15 @@ def sift_proxy(n: int, d: int = DIM, seed: int = SEED, kc: int = 2048) -> np.nda
             noise = rng.normal(size=(m, d)).astype(np.float32) * (0.45 * s)
             out[off : off + m] = centers[c] + noise @ v.T
             off += m
-    out += np.abs(out.min(axis=0, keepdims=True))
-    return out[rng.permutation(n)]
+    shift = np.abs(out.min(axis=0, keepdims=True))
+    out += shift
+    out = out[rng.permutation(n)]
+    if not extra:
+        return out
+    r2 = np.random.default_rng(extra_seed)
+    pick = r2.choice(kc, extra, p=w / w.sum())
+    more = centers[pick] + (r2.normal(size=(extra, d)).astype(np.float32) * (0.45 * s)) @ v.T
+    return out, (more + shift).astype(np.float32)
 
 
 def glove_proxy(n: int, d: int = GLOVE_DIM, seed: int = 3, kc: int = 4096) -> np.ndarray:
@@ -308,11 +345,13 @@ def check_qg_route(idx, codes_dtype) -> None:
         raise AssertionError(f"qg route took eb {eb}, codes {qg._dev_codes().dtype}")
 
 
-def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) -> int:
-    """Phases 5-9 on `dev`: the main path (create with default properties,
-    bulk build, search on the qg route, then the exact route on the same
-    index) and its checks.  Returns the window-scan launches of the main
-    path."""
+def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
+          scan_ms: float) -> tuple[int, int, float]:
+    """Phases 5-9 and 14 on `dev`: the main path (create with default
+    properties, bulk build, search on the qg route, then the exact route on
+    the same index, save and open), then the live index (appends and
+    removals on the same index) and their checks.  Returns the window-scan
+    launches of the build and of the bulk append, and phase 14's seconds."""
     import ngt_tpu_torch
     from ngt_tpu_torch.graph import build as TB
     from ngt_tpu_torch.ops import window_scan as WS
@@ -345,7 +384,13 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) ->
             f"= {build_launches * scan_ms / 1e3:.3f} s of {phases['scan']:.3f} s "
             f"({100 * build_launches * scan_ms / 1e3 / phases['scan']:.1f}%)")
 
-        # 6. build quality: the first k edges against exact k-NN
+        # 6. build quality: the first k edges against exact k-NN.  Reading
+        # the host graph brings the adjacency the build left on the card down
+        rows_down = idx.graph._deferred[3] if idx.graph._deferred else 0
+        t0 = time.time()
+        idx.graph._materialize()
+        log(f"deferred adjacency download ({rows_down} rows of {idx.graph.e_max} ids + "
+            f"distances): {time.time() - t0:.2f} s")
         k = idx.prop.edge_size_for_creation
         qsel = np.random.default_rng(2).choice(n_base, min(2000, n_base), replace=False)
         gt_q, _ = idx.batch_linear_search(base[qsel], size=k + 1)
@@ -428,7 +473,6 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) ->
         # 9. save and open
         t0 = time.time()
         idx.save()
-        idx.close()
         idx2 = ngt_tpu_torch.open_index(path, device=dev)
         again, _ = idx2.batch_search(base[sel], size=10)
         same = bool(np.array_equal(again, self_ids))
@@ -436,9 +480,199 @@ def drive(base: np.ndarray, held: np.ndarray, dev, kind: str, scan_ms: float) ->
         if not same:
             raise AssertionError("results changed across save/open")
         idx2.close()
+        del idx2
+        torch.cuda.empty_cache()
+
+        # 14. the live index: the same index takes appends and removals
+        idx.prop.search_mode = "auto"
+        append_launches, live_s = live_index(idx, base, held, extra, dev, kind, tmp)
+        idx.close()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return launches
+    return launches, append_launches, live_s
+
+
+def live_index(idx, base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
+               tmp: str) -> tuple[int, float]:
+    """Phase 14: phase 5's 1M index takes a bulk append of N_APPEND rows
+    (through the window-scan kernel), a batch removal and single removals,
+    and an incremental append of N_INCR rows into the freed slots, then
+    serves the default route.  Returns the window-scan launches of the
+    bulk append and the phase's seconds."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch import native
+    from ngt_tpu_torch.graph import build as TB
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.ops import window_scan as WS
+    from ngt_tpu_torch.quant import qgraph as QG
+
+    t_phase = time.time()
+    n0 = len(base)
+    bulk_rows, incr_rows = extra[:N_APPEND], extra[N_APPEND : N_APPEND + N_INCR]
+
+    # 1. bulk append through the window-scan kernel
+    os.environ["NGT_TPU_BUILD_PROFILE"] = "1"
+    WS.window_scan.launches = 0
+    t0 = time.time()
+    new_ids = idx.batch_insert(bulk_rows, build=True)
+    torch.cuda.synchronize()
+    launches = WS.window_scan.launches
+    del os.environ["NGT_TPU_BUILD_PROFILE"]
+    log(f"live index: bulk append of {N_APPEND} rows to {n0}: {time.time() - t0:.2f} s; "
+        f"window_scan launches {launches} (predicted {-(-N_APPEND // 4096)})")
+    log("live index: bulk append phases (s): " + ", ".join(
+        f"{label} {sec:.3f}" for label, sec in TB.last_profile))
+    if launches != -(-N_APPEND // 4096):
+        raise AssertionError(f"the bulk append launched the kernel {launches} times")
+    if not np.array_equal(new_ids, np.arange(n0, n0 + N_APPEND)):
+        raise AssertionError("the bulk append did not take fresh slots")
+    n = idx.store.repository_size
+    t0 = time.time()
+    _, comps = native.connected_components(idx.graph.nbr_ids[:n], idx.graph._has_node[:n])
+    log(f"live index: {comps} connected component(s) after the bulk append "
+        f"(host union-find over {n} rows: {time.time() - t0:.2f} s)")
+    if comps != 1:
+        raise AssertionError(f"{comps} components after the bulk append")
+
+    # 2. removal: one batch, then single ids
+    rng = np.random.default_rng(SEED + 7)
+    gone = rng.choice(n0 + N_APPEND, N_REMOVE + N_SINGLE, replace=False)
+    batch, singles = np.sort(gone[:N_REMOVE]), gone[N_REMOVE:]
+    before = idx.graph.nbr_ids[:n].copy()
+    t0 = time.time()
+    idx.batch_remove(batch)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    after = idx.graph.nbr_ids[:n]
+    log(f"live index: batch_remove of {len(batch)} ids ({int((batch >= n0).sum())} of them "
+        f"appended rows): {secs:.2f} s, {int((before != after).any(1).sum())} adjacency "
+        "rows changed")
+    before = after.copy()
+    times = []
+    for e in singles:
+        t0 = time.time()
+        idx.remove(int(e))
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    log(f"live index: {len(singles)} single removes: {sum(times):.2f} s (median "
+        f"{np.median(times) * 1e3:.0f} ms, max {max(times) * 1e3:.0f} ms), "
+        f"{int((before != idx.graph.nbr_ids[:n]).any(1).sum())} adjacency rows changed")
+    del before, after
+
+    # 3. incremental append into the freed slots (build_anng)
+    graph_search.steps = 0
+    t0 = time.time()
+    incr_ids = idx.batch_insert(incr_rows, build=True)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    reused = int(np.isin(incr_ids, gone).sum())
+    log(f"live index: incremental append of {N_INCR} rows: {secs:.2f} s, {reused} of them "
+        f"into freed slots; batches (rows, s, graph_search steps): "
+        + ", ".join(f"({b}, {t:.2f}, {st})" for b, t, st in TB.last_batches))
+    if len(TB.last_batches) != -(-N_INCR // idx.prop.device_batch_size) or reused != N_INCR:
+        raise AssertionError("the incremental append did not run build_anng into freed slots")
+    still_gone = np.setdiff1d(gone, incr_ids)
+
+    # 4. search the mutated index
+    problems = idx.verify()
+    if problems:
+        raise AssertionError(f"verify after the mutations: {problems}")
+    t0 = time.time()
+    cg = idx.check_graph()
+    log(f"live index: verify() == []; check_graph {cg} ({time.time() - t0:.1f} s)")
+    gt = ground_truth(idx, held)
+    if np.isin(gt, still_gone).any():
+        raise AssertionError("exact linear search returned a removed id")
+    os.environ["NGT_TPU_QG_PROFILE"] = "1"
+    os.environ["NGT_TPU_QG_CHUNK"] = str(len(held))
+    QG.last_profile.clear()
+    graph_search.steps, graph_search.wait_s = 0, 0.0
+    t0 = time.time()
+    found, _ = idx.batch_search(held, size=10, epsilon=0.1)
+    secs = time.time() - t0
+    del os.environ["NGT_TPU_QG_PROFILE"]
+    check_qg_route(idx, torch.int8)
+    rec = BF.recall_at_k(found, gt, 10)
+    once = sum(QG.last_profile.get(st, 0.0) for st in ("quantize", "blocks"))
+    log(f"live index: qg route recall@10 {rec:.4f} at epsilon 0.1 over the live rows, "
+        f"{len(held) / secs:.0f} queries/s in one chunk of {len(held)} ({secs:.2f} s, "
+        f"{graph_search.steps} steps; {len(held) / max(secs - once, 1e-9):.0f} queries/s "
+        f"without the re-encode and block gather) on {kind}; where the time went:")
+    qg_split(secs, 1)
+    if "quantize" not in QG.last_profile or "blocks" not in QG.last_profile:
+        raise AssertionError("the qg codes or blocks were not rebuilt after the mutations")
+    if rec < QG_RECALL_FLOOR:
+        raise AssertionError(f"live-index qg recall@10 {rec:.4f} below {QG_RECALL_FLOOR}")
+    if np.isin(found, still_gone).any():
+        raise AssertionError("the qg route returned a removed id")
+    rows = np.random.default_rng(SEED + 8)
+    pick_b = rows.choice(N_APPEND, 1000, replace=False)
+    live_b = pick_b[~np.isin(new_ids[pick_b], gone)]
+    for what, ids_, vecs in (("bulk-appended", new_ids[live_b], bulk_rows[live_b]),
+                             ("incrementally appended", incr_ids[:1000], incr_rows[:1000])):
+        got, _ = idx.batch_search(vecs, size=10)
+        hits = float((got[:, 0] == ids_).mean())
+        log(f"live index: {what} rows: {hits:.4f} of {len(ids_)} find themselves first "
+            "(qg route)")
+        if hits < SELF_HIT_FLOOR:
+            raise AssertionError(f"{what} self-hits {hits:.4f} below {SELF_HIT_FLOOR}")
+        if np.isin(got, still_gone).any():
+            raise AssertionError("a self-query returned a removed id")
+    del os.environ["NGT_TPU_QG_CHUNK"]
+    path = os.path.join(tmp, "live")
+    idx.prop.search_mode = "exact"
+    t0 = time.time()
+    idx.save(path)
+    again = ngt_tpu_torch.open_index(path, device=dev)
+    mine = idx.batch_search(held[:1000], size=10)[0]
+    theirs = again.batch_search(held[:1000], size=10)[0]
+    same = bool(np.array_equal(mine, theirs))
+    log(f"live index: save + open_index + exact-route search: {time.time() - t0:.1f} s; "
+        f"identical ids: {same}")
+    if not same or np.isin(mine, still_gone).any():
+        raise AssertionError("the mutated index changed across save/open")
+    again.close()
+    secs = time.time() - t_phase
+    log(f"live index: phase total {secs:.1f} s")
+    return launches, secs
+
+
+def mutations_card_vs_cpu(dev, n: int = 8192, nq: int = 1000) -> float:
+    """Phase 15: the mutation paths on the card and on the CPU port from the
+    same rows (the phase 11 generator): bulk build, an append through
+    build_anng, a batch removal, a bulk append; adjacency and exact-route
+    ids on >= 99.9% of entries after each step.  Returns its seconds."""
+    import ngt_tpu_torch
+
+    t0 = time.time()
+    x = sift_proxy(n + 2048 + 4096 + nq, seed=SEED + 1, kc=64)
+    q = x[-nq:]
+    gone = np.random.default_rng(SEED + 9).choice(n + 2048, 512, replace=False)
+    steps = [
+        ("bulk build", lambda i: i.batch_insert(x[:n], build=True)),
+        ("build_anng append of 2048", lambda i: i.batch_insert(x[n : n + 2048], build=True)),
+        ("batch_remove of 512", lambda i: i.batch_remove(gone)),
+        ("bulk append of 4096", lambda i: i.batch_insert(x[n + 2048 : n + 6144], build=True)),
+    ]
+    pair = [ngt_tpu_torch.create(None, dimension=DIM, device=d, search_mode="exact")
+            for d in (dev, "cpu")]
+    for what, step in steps:
+        for idx in pair:
+            step(idx)
+        card, cpu = pair
+        m = card.store.repository_size
+        adj = float((card.graph.nbr_ids[:m] == cpu.graph.nbr_ids[:m]).mean())
+        ids = float((card.batch_search(q, size=10)[0] == cpu.batch_search(q, size=10)[0]).mean())
+        log(f"card vs CPU, {what} at {card.store.repository_size - 1} slots: adjacency "
+            f"{adj:.6f}, exact-route ids {ids:.6f}")
+        if adj < 0.999 or ids < 0.999 or card.verify() or cpu.verify():
+            raise AssertionError(f"card and CPU disagree after the {what}")
+    for idx in pair:
+        idx.close()
+    secs = time.time() - t0
+    log(f"card vs CPU, mutation paths: {secs:.1f} s")
+    return secs
 
 
 def u8_arm(allx: np.ndarray, dev, kind: str) -> int:
@@ -751,7 +985,8 @@ def main() -> int:
 
     # data: 1M base rows + 10k held-out rows of one generator
     t0 = time.time()
-    allx = sift_proxy(N_BASE + N_HELD_OUT)
+    allx, extra = sift_proxy(N_BASE + N_HELD_OUT, extra=N_APPEND + N_INCR,
+                             extra_seed=SEED + 1000)
     base, held = allx[:N_BASE], allx[N_BASE:]
     log(f"data: {N_BASE} x {DIM} base + {N_HELD_OUT} held-out rows in {time.time() - t0:.1f} s")
 
@@ -783,11 +1018,12 @@ def main() -> int:
     del x, v, x16, sp, q16
     torch.cuda.empty_cache()
 
-    launches = drive(base, held, dev, kind, ms)
+    launches, append_launches, live_s = drive(base, held, extra, dev, kind, ms)
     torch.cuda.empty_cache()
     u8_launches = u8_arm(allx, dev, kind)
-    log(f"window_scan launches: {launches} on the main path, {u8_launches} in the u8 arm")
-    del allx, base, held
+    log(f"window_scan launches: {launches} on the main path's build, {append_launches} on "
+        f"its bulk append, {u8_launches} in the u8 arm")
+    del allx, base, held, extra
     torch.cuda.empty_cache()
     card_vs_cpu(dev)
     torch.cuda.empty_cache()
@@ -795,8 +1031,11 @@ def main() -> int:
     log(f"window_scan launches on the Cosine arm: {cos_launches}")
     torch.cuda.empty_cache()
     metrics_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    mut_s = mutations_card_vs_cpu(dev)
+    log(f"live-index checks (phases 14 + 15): {live_s + mut_s:.1f} s")
 
-    # 14. kernels, device, result
+    # 16. kernels, device, result
     # the last three lines go out bare: the kernels line, the nvidia-smi
     # line and the result line are read by machines
     log(f"total {time.time() - t_start:.1f} s")
@@ -805,7 +1044,11 @@ def main() -> int:
         "route": "cuda",
         "source": "ngt_tpu_torch/csrc/window_scan.cu",
         "replaces": "ngt_tpu/ops/pallas_scan.py:88",
-        "launches": launches,
+        "launches": launches + append_launches,
+        "launches_by_path": {"main path: build": launches,
+                             "main path: bulk append": append_launches,
+                             "u8 arm: build": u8_launches,
+                             "Cosine arm: build": cos_launches},
         "matched": True,
         "max_abs_err": err,
         "ms": ms,

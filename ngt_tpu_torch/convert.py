@@ -2,9 +2,10 @@
 arrays — the arrays of ``VectorStore.state_dict`` (float32, uint8 or
 sparse int32 rows; a BFLOAT16 store's float32 host rows),
 ``GraphStore.state_dict``, ``Seeder.rep_ids`` and the reps' squared norms,
-plus the property fields, and a quantized graph's codes, mode, scale and
-block width.  Tests use it to give both packages the same graph and the
-same codes.
+the store's free-slot list and mutation count, plus the property fields,
+and a quantized graph's codes, mode, scale and block width.  Tests use it
+to give both packages the same graph, the same slots to reuse and the same
+codes.
 """
 
 from __future__ import annotations
@@ -33,12 +34,13 @@ def _property(prop_dict: dict) -> Property:
 
 def from_ngt_tpu_arrays(objects, valid, nbr_ids, nbr_dist, degree, has_node,
                         rep_ids, prop_dict, device="cuda", free=None,
-                        rep_sq=None) -> Index:
+                        rep_sq=None, mutation_count=0) -> Index:
     """A port ``Index`` holding the given state: ``objects`` [n, d_pad] in
     the store's dtype and ``valid`` [n] (row 0 the dummy slot), the
     adjacency arrays of n rows, the seed representative ids (with their
-    squared norms ``rep_sq`` when given, else computed) and a dict of
-    ``Property`` fields."""
+    squared norms ``rep_sq`` when given, else computed), a dict of
+    ``Property`` fields, the free slots ``free`` (reused smallest first by
+    later inserts) and the store's ``mutation_count``."""
     prop = _property(prop_dict)
     idx = Index(prop=prop, device=device)
     idx.store = VectorStore.from_state(
@@ -52,6 +54,7 @@ def from_ngt_tpu_arrays(objects, valid, nbr_ids, nbr_dist, degree, has_node,
         },
         device=device,
     )
+    idx.store.mutation_count = int(mutation_count)
     idx.graph = GraphStore.from_state({
         "nbr_ids": nbr_ids, "nbr_dist": nbr_dist, "degree": degree,
         "has_node": has_node, "e_max": np.asarray(nbr_ids).shape[1],
@@ -83,6 +86,7 @@ def to_numpy_state(index: Index) -> dict:
         "rep_ids": index.seeder.rep_ids, "prop_dict": prop,
         "rep_sq": (None if index.seeder._rep_sq is None
                    else index.seeder._rep_sq.cpu().numpy()),
+        "mutation_count": index.store.mutation_count,
     }
 
 

@@ -1,0 +1,191 @@
+// Host graph runtime of ngt_tpu_torch: the three union-find and edge-merge
+// routines of the JAX package's native library (ngt_tpu/native/src/
+// ngt_tpu_native.cpp: merge_edges, connected_components, union_pairs),
+// copied with the same C ABI so both packages give the same graphs and the
+// same component labels.  Built by g++ at first use (ngt_tpu_torch/native.py)
+// and called through ctypes.
+//
+//  * merge_edges — the serial graph update of a build batch (the analogue
+//    of the reference's coordinator-thread insert, Index.cpp:670-719): bulk
+//    sorted-insert of reverse edges into fixed-width rows, dropping the
+//    farthest edge when a row is full (addEdgeDeletingExcessEdges,
+//    Graph.h:888-934);
+//  * connected_components — union-find labels (root ids) of the undirected
+//    view of the adjacency;
+//  * union_pairs — merge extra label pairs into a labeling, min-id labels.
+
+#include <algorithm>
+#include <cstdint>
+#include <thread>
+#include <utility>
+#include <vector>
+
+extern "C" {
+
+// Bulk sorted-insert of edges target->src into fixed-width rows.
+//   nbr_ids  [cap * e_max] int32, -1 padded, each row ascending by dist
+//   nbr_dist [cap * e_max] float, +inf padded
+//   degree   [cap] int32
+//   has_node [cap] uint8
+// adds: (targets[i] -> srcs[i], dists[i]) for i < n_adds.
+// Duplicate (target, src) pairs are skipped; full rows drop the farthest.
+void merge_edges(int32_t *nbr_ids, float *nbr_dist, int32_t *degree,
+                 uint8_t *has_node, int64_t e_max, const int64_t *targets,
+                 const int32_t *srcs, const float *dists, int64_t n_adds) {
+  if (n_adds <= 0) return;
+  // group adds by target
+  std::vector<int64_t> order(n_adds);
+  for (int64_t i = 0; i < n_adds; ++i) order[i] = i;
+  std::stable_sort(order.begin(), order.end(), [&](int64_t a, int64_t b) {
+    return targets[a] < targets[b];
+  });
+  // one group per distinct target; groups touch disjoint rows, so they
+  // run on threads freely
+  std::vector<int64_t> starts;
+  starts.reserve(1024);
+  for (int64_t i = 0; i < n_adds; ++i)
+    if (i == 0 || targets[order[i]] != targets[order[i - 1]])
+      starts.push_back(i);
+  starts.push_back(n_adds);
+  const int64_t n_groups = static_cast<int64_t>(starts.size()) - 1;
+
+  auto work = [&](int64_t g0, int64_t g1) {
+    std::vector<std::pair<float, int32_t>> row;
+    row.reserve(e_max * 2);
+    for (int64_t g = g0; g < g1; ++g) {
+      const int64_t i0 = starts[g], i1 = starts[g + 1];
+      const int64_t t = targets[order[i0]];
+      int32_t *ids = nbr_ids + t * e_max;
+      float *ds = nbr_dist + t * e_max;
+      row.clear();
+      for (int64_t j = 0; j < e_max && ids[j] >= 0; ++j)
+        row.emplace_back(ds[j], ids[j]);
+      const size_t existing = row.size();
+      for (int64_t i = i0; i < i1; ++i) {
+        const int32_t s = srcs[order[i]];
+        if (s < 0) continue;
+        bool dup = false;
+        for (size_t j = 0; j < row.size(); ++j)
+          if (row[j].second == s) { dup = true; break; }
+        if (!dup) row.emplace_back(dists[order[i]], s);
+      }
+      if (row.size() != existing) {
+        std::stable_sort(row.begin(), row.end(),
+                         [](const std::pair<float, int32_t> &a,
+                            const std::pair<float, int32_t> &b) {
+                           return a.first < b.first;
+                         });
+        const int64_t n = std::min<int64_t>(row.size(), e_max);
+        for (int64_t j = 0; j < n; ++j) {
+          ds[j] = row[j].first;
+          ids[j] = row[j].second;
+        }
+        for (int64_t j = n; j < e_max; ++j) {
+          ds[j] = __builtin_inff();
+          ids[j] = -1;
+        }
+        degree[t] = static_cast<int32_t>(n);
+        has_node[t] = 1;
+      }
+    }
+  };
+
+  unsigned hw = std::thread::hardware_concurrency();
+  int64_t n_threads = hw ? static_cast<int64_t>(hw) : 4;
+  if (n_threads > n_groups / 64) n_threads = n_groups / 64;  // small batches
+  if (n_threads <= 1) {
+    work(0, n_groups);
+    return;
+  }
+  std::vector<std::thread> pool;
+  pool.reserve(n_threads);
+  const int64_t per = (n_groups + n_threads - 1) / n_threads;
+  for (int64_t t = 0; t < n_threads; ++t) {
+    const int64_t g0 = t * per;
+    const int64_t g1 = std::min(g0 + per, n_groups);
+    if (g0 >= g1) break;
+    pool.emplace_back(work, g0, g1);
+  }
+  for (auto &th : pool) th.join();
+}
+
+// Connected components of the (undirected view of the) adjacency.
+//   nbr_ids [n * e_max] int32, -1 padded;  has_node [n] uint8
+//   labels  [n] int32 out: component root id per node, -1 for non-nodes.
+// Union-find with path halving.  Returns the component count.
+int64_t connected_components(const int32_t *nbr_ids, const uint8_t *has_node,
+                             int64_t n, int64_t e_max, int32_t *labels) {
+  std::vector<int32_t> parent(n);
+  for (int64_t i = 0; i < n; ++i) parent[i] = static_cast<int32_t>(i);
+  auto find = [&](int32_t v) {
+    while (parent[v] != v) {
+      parent[v] = parent[parent[v]];  // path halving
+      v = parent[v];
+    }
+    return v;
+  };
+  for (int64_t u = 0; u < n; ++u) {
+    if (!has_node[u]) continue;
+    const int32_t *row = nbr_ids + u * e_max;
+    for (int64_t j = 0; j < e_max; ++j) {
+      const int32_t v = row[j];
+      if (v < 0) break;  // rows are -1 padded at the tail
+      if (v >= n || !has_node[v]) continue;
+      int32_t ru = find(static_cast<int32_t>(u)), rv = find(v);
+      if (ru != rv) parent[rv] = ru;
+    }
+  }
+  int64_t roots = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    if (!has_node[i]) {
+      labels[i] = -1;
+    } else {
+      labels[i] = find(static_cast<int32_t>(i));
+      if (labels[i] == static_cast<int32_t>(i)) ++roots;
+    }
+  }
+  return roots;
+}
+
+// Merge extra undirected edges (given in LABEL space) into an existing
+// component labeling: labels[n] int32 in/out holds a component
+// representative per node (-1 for non-nodes; a representative's label is
+// itself).  Pairs (a[i], b[i]) are representative ids to union.  On return
+// labels hold the MIN node id of each merged component.  Returns the
+// component count.
+int64_t union_pairs(int32_t *labels, int64_t n, const int32_t *a,
+                    const int32_t *b, int64_t m) {
+  std::vector<int32_t> parent(n);
+  for (int64_t i = 0; i < n; ++i)
+    parent[i] = labels[i] >= 0 ? labels[i] : static_cast<int32_t>(i);
+  auto find = [&](int32_t v) {
+    while (parent[v] != v) {
+      parent[v] = parent[parent[v]];  // path halving
+      v = parent[v];
+    }
+    return v;
+  };
+  for (int64_t i = 0; i < m; ++i) {
+    const int32_t x = a[i], y = b[i];
+    if (x < 0 || x >= n || y < 0 || y >= n) continue;
+    const int32_t rx = find(x), ry = find(y);
+    if (rx != ry) parent[ry] = rx;
+  }
+  std::vector<int32_t> mn(n, -1);
+  for (int64_t i = 0; i < n; ++i) {
+    if (labels[i] < 0) continue;
+    const int32_t r = find(static_cast<int32_t>(i));
+    if (mn[r] < 0 || static_cast<int32_t>(i) < mn[r])
+      mn[r] = static_cast<int32_t>(i);
+  }
+  int64_t comps = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    if (labels[i] < 0) continue;
+    const int32_t r = find(static_cast<int32_t>(i));
+    labels[i] = mn[r];
+    if (mn[r] == static_cast<int32_t>(i)) ++comps;
+  }
+  return comps;
+}
+
+}  // extern "C"

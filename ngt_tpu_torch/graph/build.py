@@ -17,12 +17,22 @@ copy, where both are monotone in L2, and convert the distances exactly
 (cosine = d^2/2, angle = acos(1 - d^2/2)).  Every other metric takes the
 exact ``linear_search`` in chunks of 4,096 queries.
 
-Appends to a built graph and the incremental ANNG build wait for ROADMAP
-Queue 1, M11.
+Appends: one of at least ``bulk_append_threshold`` rows takes the bulk
+route too (``build_bulk``): the same scan over the new rows, applied on the
+host in two phases (every new row, then every reverse edge), connected with
+the host union-find labels (``native.connected_components``).  Smaller
+appends, and every build with ``build_algorithm="anng"``, take the
+incremental ANNG build (``build_anng``): batches of ``device_batch_size``
+new rows search the current graph (``graph_search``), merge the intra-batch
+pairwise candidates, and update the host graph and the device mirror's
+changed rows (``DeviceMirror.update_rows``).  Removal (``remove_object``,
+``batch_remove_objects``) tombstones, unlinks, and relinks each removed
+node's surviving former neighbors to their nearest former co-neighbor.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 import time
@@ -30,12 +40,15 @@ import time
 import numpy as np
 import torch
 
-from ngt_tpu_torch.graph.storage import GraphStore, merge_edge_rows
+from ngt_tpu_torch import native
+from ngt_tpu_torch.graph.search import graph_search, wrap_hash_bits
+from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.ops import bruteforce as BF
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops import window_scan as WS
 from ngt_tpu_torch.properties import DistanceType, GraphType, Property
-from ngt_tpu_torch.seeds import Seeder, default_reps
+from ngt_tpu_torch.ops.select import topk_lex
+from ngt_tpu_torch.seeds import Seeder, default_reps, top_seeds
 from ngt_tpu_torch.store import SQNORM_METRICS, VectorStore
 from ngt_tpu_torch.utils import narrow_host
 
@@ -161,10 +174,11 @@ class DeviceMirror:
     def _wants_sqnorm(self) -> bool:
         return self.store.metric in SQNORM_METRICS
 
-    def _search_valid(self) -> np.ndarray:
+    def _search_valid(self, idx: np.ndarray | None = None) -> np.ndarray:
         # a search may only return indexed objects: live AND graph node
         cap = self.store._x.shape[0]
-        return self.store._valid[:cap] & self.graph._has_node[:cap]
+        v = self.store._valid[:cap] & self.graph._has_node[:cap]
+        return v if idx is None else v[idx]
 
     def drop(self) -> None:
         """Forget the device arrays (stale once the graph changes)."""
@@ -195,6 +209,47 @@ class DeviceMirror:
         self.valid = torch.from_numpy(self._search_valid()).to(self.store.device)
         self.capacity = self.store._x.shape[0]
         self.version += 1
+
+    def update_rows(self, obj_ids: np.ndarray | None, nbr_ids: np.ndarray | None) -> None:
+        """Scatter changed rows into the resident tensors: the object rows,
+        valid bits and squared norms of ``obj_ids`` and the adjacency rows
+        of ``nbr_ids`` (``obj_ids`` when None or empty), by int64 index.  A
+        float row the narrow mirror cannot hold exactly widens the mirror to
+        f32 once; a changed capacity (or a dropped mirror) re-uploads
+        everything (ngt_tpu/graph/build.py:285-324)."""
+        if self.x is None or self.capacity != self.store._x.shape[0]:
+            self.sync_full()
+            return
+        dev = self.x.device
+        has_obj = obj_ids is not None and len(obj_ids) > 0
+        if nbr_ids is None or len(nbr_ids) == 0:
+            if not has_obj:
+                return
+            nbr_ids = obj_ids
+        if has_obj:
+            oid = np.asarray(obj_ids, np.int64)
+            rows = self.store._x[oid]
+            oi = torch.from_numpy(oid).to(dev)
+            if self.sqnorm is not None:
+                sq = (rows.astype(np.float32) ** 2).sum(-1)
+                self.sqnorm.index_copy_(0, oi, torch.from_numpy(sq).to(dev))
+            if self.x.dtype != torch.float32 and rows.dtype == np.float32:
+                with np.errstate(invalid="ignore", over="ignore"):
+                    cast = rows.astype(_NUMPY_DTYPE[self.x.dtype])
+                if np.array_equal(cast.astype(np.float32), rows):
+                    rows = cast
+                else:
+                    self.x = self.x.to(torch.float32)
+            self.x.index_copy_(0, oi, torch.from_numpy(rows).to(dev, self.x.dtype))
+            self.valid.index_copy_(0, oi, torch.from_numpy(self._search_valid(oid)).to(dev))
+        nid = np.asarray(nbr_ids, np.int64)
+        self.nbr.index_copy_(0, torch.from_numpy(nid).to(dev),
+                             torch.from_numpy(self.graph.nbr_ids[nid]).to(dev))
+        self.version += 1
+
+
+#: numpy dtype of each narrow mirror dtype (``utils.narrow_host``)
+_NUMPY_DTYPE = {torch.uint8: np.uint8, torch.int16: np.int16, torch.float16: np.float16}
 
 
 def _dist_bits(d: torch.Tensor) -> torch.Tensor:
@@ -290,24 +345,23 @@ def _cc_labels_device(nbr: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 def _bridge_deferred(graph: GraphStore, piv, tgt, td) -> torch.Tensor:
     """Apply bidirectional bridge edges to adjacency that still lives on the
     device (``GraphStore.defer_rows``): pull the touched rows, merge them on
-    the host with add_edges semantics (sorted bounded insert, duplicates
-    skipped; Graph.h:888-934), write them back IN PLACE into the deferred
-    tensors (the build owns them)."""
+    the host through the host graph library's ``merge_edges`` (sorted
+    bounded insert, duplicates skipped; Graph.h:888-934), write them back
+    IN PLACE into the deferred tensors (the build owns them)."""
     dev_i, dev_d, dev_g, _ = graph._deferred
     targets = np.concatenate([piv, tgt]).astype(np.int64)
-    srcs = np.concatenate([tgt, piv]).astype(np.int32)
-    dd = np.concatenate([td, td]).astype(np.float32)
-    order = np.argsort(targets, kind="stable")
-    targets, srcs, dd = targets[order], srcs[order], dd[order]
     uniq = np.unique(targets)
     idx = torch.from_numpy(uniq).to(dev_i.device)
-    new_i, new_d, new_deg = merge_edge_rows(
-        uniq, dev_i[idx].cpu().numpy(), dev_d[idx].cpu().numpy(),
-        targets, srcs, dd, graph.e_max,
+    rows_i = np.ascontiguousarray(dev_i[idx].cpu().numpy(), np.int32)
+    rows_d = np.ascontiguousarray(dev_d[idx].cpu().numpy(), np.float32)
+    deg = np.ascontiguousarray(dev_g[idx].cpu().numpy(), np.int32)
+    native.merge_edges(
+        rows_i, rows_d, deg, np.ones(len(uniq), np.uint8),
+        np.searchsorted(uniq, targets), np.concatenate([tgt, piv]), np.concatenate([td, td]),
     )
-    dev_i[idx] = torch.from_numpy(new_i).to(dev_i.device)
-    dev_d[idx] = torch.from_numpy(new_d).to(dev_i.device)
-    dev_g[idx] = torch.from_numpy(new_deg).to(dev_i.device, dev_g.dtype)
+    dev_i[idx] = torch.from_numpy(rows_i).to(dev_i.device)
+    dev_d[idx] = torch.from_numpy(rows_d).to(dev_i.device)
+    dev_g[idx] = torch.from_numpy(deg).to(dev_i.device, dev_g.dtype)
     return dev_i
 
 
@@ -322,8 +376,11 @@ def ensure_connected(
 ) -> tuple[int, torch.Tensor | None]:
     """Link disconnected components into the main graph.
 
-    Labels come from ``first_labels`` when given, else from min-label
-    propagation over the host adjacency.  Each pass takes one pivot per
+    Labels come from ``first_labels`` when given (the fresh bulk build's
+    device min-label propagation), else from the host graph library's
+    union-find over the host adjacency (root ids, as the reference's, so a
+    tie in component size picks the same main component).  Each pass takes
+    one pivot per
     secondary component (its lowest node id) and links it both ways to its
     nearest representative in another component; the bridged labels are
     then merged in place (the bridges are the only new edges).  The main
@@ -331,13 +388,13 @@ def ensure_connected(
     ``np.bincount(...).argmax()`` gives.  Returns the final component count
     and the (bridge-updated) device adjacency when one was passed in."""
     n = store.repository_size
-    if first_labels is None:
+    if first_labels is not None:
+        labels = np.asarray(first_labels)[:n].astype(np.int64)
+        labels[labels >= n] = -1
+    else:
         m = max(n, 1)
-        first_labels = _cc_labels_device(
-            torch.from_numpy(graph.nbr_ids[:m]), torch.from_numpy(graph._has_node[:m])
-        ).numpy()
-    labels = np.asarray(first_labels)[:n].astype(np.int64)
-    labels[labels >= n] = -1
+        labels = native.connected_components(
+            graph.nbr_ids[:m], graph._has_node[:m])[0][:n].astype(np.int64)
     comps = len(np.unique(labels[labels >= 0]))
     rrow = None  # rep rows upload once, reused across passes
     for _ in range(max_passes):
@@ -422,28 +479,38 @@ def build_bulk(
     pending: np.ndarray,
     mirror: DeviceMirror | None = None,
 ) -> DeviceMirror:
-    """Fresh-index bulk construction: EXACT k-NN edges + reverse edges.
+    """Bulk construction: EXACT k-NN edges + reverse edges, for a fresh
+    index or an append of many rows to a built one.
 
     The reference grows its graph incrementally because exact k-NN is
     quadratic on a CPU; on a matrix engine the full distance scan is the
     cheap path, and an exact k-NN graph with reverse edges dominates an
-    incrementally grown ANNG in quality."""
-    if graph.node_count() != 0:
-        raise NotImplementedError(
-            "bulk append to a built graph is not ported yet "
-            "(ROADMAP Queue 1, M11)"
-        )
+    incrementally grown ANNG in quality.
+
+    A fresh index assembles every adjacency row on the device
+    (``_bulk_graph_rows``).  An append scans the new rows against the whole
+    store in chunks of NGT_TPU_BULK_QBLOCK rows (131,072 on the fast scan,
+    4,096 on ``linear_search``), brings each chunk's k nearest other rows to
+    the host, and applies them in two phases, every new row first and every
+    reverse edge second: interleaved per chunk, a later chunk's row would
+    wipe the reverse edges an earlier chunk added into it
+    (ngt_tpu/graph/build.py:1010-1026)."""
     k = int(prop.edge_size_for_creation)
     pending = np.asarray(pending, dtype=np.int32)
     cap = store._x.shape[0]
     graph.ensure_capacity(cap)
+    fresh = graph.node_count() == 0
     if mirror is None:
         mirror = DeviceMirror(store, graph)
+    # free the old mirror and any adjacency a fresh build left deferred on
+    # the device before the new upload, so neither sits through the scan
+    # (the "upload" phase holds the download)
     mirror.drop()
+    mark = _Marks(store.device)
+    graph._materialize()
     if len(pending) == 0:
         return mirror
     dev = store.device
-    mark = _Marks(dev)
     metric = store.metric
     # the narrow upload is what the search mirror adopts; the scan holds a
     # widened f32 working copy of a float store
@@ -452,7 +519,7 @@ def build_bulk(
     valid = torch.from_numpy(store._valid).to(dev, copy=True)
     sqn = D.sq_norms(x) if mirror._wants_sqnorm() else None
     mark("upload")
-    pend = torch.from_numpy(pending).to(dev)
+    x_fast = sqn_fast = None
     if metric in _FAST_SCAN:
         x_fast = x.to(torch.float32)
         ang = metric in _ANGULAR_SCAN
@@ -465,39 +532,75 @@ def build_bulk(
             if cap >= WINDOW_SCAN_MIN_ROWS and x.is_cuda and store.d_pad <= WS.D_MAX
             else "blocked"
         )
-        # kc = 2(k+1): any true top-(k+1) neighbor ranks <= k+1 within its
-        # own block, so a 2x window never loses it to bf16 noise
-        ids, dists = BF.fast_knn_l2_bulk(
-            pend, x_fast, valid, sqn_fast, k=k + 1, kc=2 * (k + 1),
-            qblock=4096, scan_impl=scan_impl,
-        )
-        del x_fast, sqn_fast
-        dists = _l2_to_metric(dists, metric)
-    else:
-        parts = [
-            BF.linear_search(
-                torch.from_numpy(store._x[pending[i : i + LINEAR_QBLOCK]]).to(dev),
-                x, valid, metric, k + 1, x_sqnorm=sqn,
+
+        def scan(rows: np.ndarray):
+            # kc = 2(k+1): any true top-(k+1) neighbor ranks <= k+1 within
+            # its own block, so a 2x window never loses it to bf16 noise
+            ids, dists = BF.fast_knn_l2_bulk(
+                torch.from_numpy(rows).to(dev), x_fast, valid, sqn_fast, k=k + 1,
+                kc=2 * (k + 1), qblock=4096, scan_impl=scan_impl,
             )
-            for i in range(0, len(pending), LINEAR_QBLOCK)
-        ]
-        ids = torch.cat([p[0] for p in parts])
-        dists = torch.cat([p[1] for p in parts])
-        del parts
-    mark("scan")
+            return ids, _l2_to_metric(dists, metric)
+    else:
+
+        def scan(rows: np.ndarray):
+            parts = [
+                BF.linear_search(
+                    torch.from_numpy(store._x[rows[i : i + LINEAR_QBLOCK]]).to(dev),
+                    x, valid, metric, k + 1, x_sqnorm=sqn,
+                )
+                for i in range(0, len(rows), LINEAR_QBLOCK)
+            ]
+            return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
     reverse = prop.graph_type != GraphType.KNNG
-    nbr_dev, nbrd_dev, deg_dev = _bulk_graph_rows(
-        pend, ids, dists, e_max=graph.e_max, cap=cap, reverse=reverse,
-    )
-    del ids, dists
-    mark("rows")
-    # fresh build: graph membership == store validity
-    first_labels = _cc_labels_device(nbr_dev, valid).cpu().numpy() if reverse else None
-    mark("cc")
-    graph._has_node[:] = False
-    graph._has_node[pending] = True
-    graph.defer_rows(nbr_dev, nbrd_dev, deg_dev, int(pending.max()) + 1)
-    mark("defer")
+    if fresh:
+        ids, dists = scan(pending)
+        x_fast = sqn_fast = None
+        mark("scan")
+        nbr_dev, nbrd_dev, deg_dev = _bulk_graph_rows(
+            torch.from_numpy(pending).to(dev), ids, dists, e_max=graph.e_max,
+            cap=cap, reverse=reverse,
+        )
+        del ids, dists
+        mark("rows")
+        # fresh build: graph membership == store validity
+        first_labels = _cc_labels_device(nbr_dev, valid).cpu().numpy() if reverse else None
+        mark("cc")
+        graph._has_node[:] = False
+        graph._has_node[pending] = True
+        graph.defer_rows(nbr_dev, nbrd_dev, deg_dev, int(pending.max()) + 1)
+        mark("defer")
+    else:
+        qblock = int(os.environ.get("NGT_TPU_BULK_QBLOCK", "0")) or (
+            32 * 4096 if metric in _FAST_SCAN else LINEAR_QBLOCK
+        )
+        chunks = []
+        for off in range(0, len(pending), qblock):
+            chunk = pending[off : off + qblock]
+            ids, dists = scan(chunk)
+            ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+            # drop self-matches, keep k
+            dists = np.where(ids == chunk[:, None], np.inf, dists)
+            order = np.argsort(dists, axis=1, kind="stable")[:, :k]
+            sel_i = np.take_along_axis(ids, order, axis=1)
+            sel_d = np.take_along_axis(dists, order, axis=1)
+            sel_i[~np.isfinite(sel_d)] = -1
+            chunks.append((chunk, sel_i, sel_d))
+        del ids, dists
+        x_fast = sqn_fast = None
+        mark("scan")
+        for chunk, sel_i, sel_d in chunks:
+            graph.set_nodes(chunk, sel_i, sel_d)
+        if reverse:
+            for chunk, sel_i, sel_d in chunks:
+                ok = sel_i >= 0
+                graph.add_edges(sel_i[ok].astype(np.int64),
+                                np.repeat(chunk, ok.sum(axis=1)).astype(np.int32),
+                                sel_d[ok].astype(np.float32))
+        del chunks
+        mark("apply")
+        nbr_dev = first_labels = None
     if prop.truncation_threshold > 0:
         # exact rows: the tail IS the farthest edges; ensure_connected
         # keeps the cut-off targets reachable
@@ -520,3 +623,488 @@ def build_bulk(
     mark("mirror")
     mark.report()
     return mirror
+
+
+# ------------------------------------------------------------------------
+# incremental ANNG build
+# ------------------------------------------------------------------------
+
+
+def _bucket(n: int) -> int:
+    """The reference's batch padding: the next power of two, at least 32.
+    The port pads nothing, but the intra-batch top-kb width derives from
+    it, so small batches link as the reference's do."""
+    return 1 << max(int(math.ceil(math.log2(max(n, 1)))), 5)
+
+
+def _batch_topk(metric, queries: torch.Tensor, kb: int):
+    """The kb nearest other members of each batch row (positions, dists),
+    ascending, ties to the lower position (``lax.top_k`` order).  kb may
+    exceed the batch: the missing columns are empty (+inf)."""
+    pb = D.pairwise(metric, queries, queries)
+    b = pb.shape[0]
+    eye = torch.eye(b, dtype=torch.bool, device=pb.device)
+    pb = torch.where(eye, INF, pb)
+    if kb > b:
+        pb = torch.cat([pb, pb.new_full((b, kb - b), INF)], 1)
+    pos = torch.arange(pb.shape[1], dtype=torch.int32, device=pb.device)
+    bd, bi = topk_lex(pb, pos.expand_as(pb), kb)
+    return bi, bd
+
+
+def _seeds(metric, queries, rep_rows, rep_sq, rep_ids, s: int) -> torch.Tensor:
+    """Seed ids: the s best representatives by ``seed_scores``."""
+    return rep_ids[top_seeds(D.seed_scores(metric, queries, rep_rows, rep_sq=rep_sq), s)]
+
+
+def _fused_insert_search(mirror: DeviceMirror, rep_rows, rep_sq, rep_ids, queries, eps,
+                         *, metric, k, kb, s, width, hash_bits, exact_hash, expand=1):
+    """Seed scoring, the insertion search over the current graph and the
+    intra-batch pairwise top-kb (kb = 0 skips it): the device side of a
+    build batch (ngt_tpu/graph/build.py:64-96).  Returns (ids, dists) of
+    the search and (positions, dists) of the batch top-kb, or None."""
+    seeds = _seeds(metric, queries, rep_rows, rep_sq, rep_ids, s)
+    res = graph_search(
+        mirror.x, mirror.nbr, mirror.valid, queries, seeds, metric=metric, k=k,
+        epsilon=eps, width=width, hash_bits=hash_bits, exact_hash=exact_hash,
+        expand=expand, x_sqnorm=mirror.sqnorm,
+    )
+    return res.ids, res.dists, (_batch_topk(metric, queries, kb) if kb else None), res.iters
+
+
+def _fused_insert_search_sq8(mirror: DeviceMirror, blocks, codes, rep_rows, rep_sq, rep_ids,
+                             queries, eps, inv_scale, *, metric, k, kb, s, width,
+                             hash_bits, exact_hash):
+    """The sq8 insertion search: the traversal scores int8 neighbor blocks
+    (``[cap, E, D]``, one row read per hop) for 2k candidates with the
+    radius rule on the k-th, then the candidates are re-ranked exactly
+    against the mirror, so the stored edges carry true distances
+    (ngt_tpu/graph/build.py:99-137)."""
+    seeds = _seeds(metric, queries, rep_rows, rep_sq, rep_ids, s)
+    res = graph_search(
+        blocks, mirror.nbr, mirror.valid, queries.to(torch.float32) * inv_scale, seeds,
+        metric=DistanceType.L2, k=2 * k, k_radius=k, epsilon=eps, width=width,
+        hash_bits=hash_bits, exact_hash=exact_hash, block_mode=True, seed_x=codes,
+    )
+    safe = res.ids.to(torch.int64).clamp(0, mirror.x.shape[0] - 1)
+    rsq = mirror.sqnorm[safe] if mirror.sqnorm is not None else None
+    dd = D.gathered(metric, queries, mirror.x[safe], xs_sqnorm=rsq)
+    dd = torch.where(res.ids >= 0, dd, INF)
+    pos = torch.arange(dd.shape[1], dtype=torch.int32, device=dd.device)
+    f_d, sel = topk_lex(dd, pos.expand_as(dd), k)
+    f_ids = res.ids.gather(1, sel.to(torch.int64))
+    f_ids = torch.where(torch.isfinite(f_d), f_ids, -1)
+    return f_ids, f_d, _batch_topk(metric, queries, kb), res.iters
+
+
+def _sq8_codes(x: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x.to(torch.float32) * inv_scale), -127, 127).to(torch.int8)
+
+
+def _make_codes_blocks(x: torch.Tensor, nbr: torch.Tensor, inv_scale: torch.Tensor):
+    """int8 codes of every mirror row and the neighbor blocks
+    ``blocks[u] = codes[nbr[u]]`` ([cap, E, D]; 8 GiB at 1M x 64 x 128, so
+    this opt-in route suits small indexes)."""
+    codes = _sq8_codes(x, inv_scale)
+    return codes, codes[nbr.to(torch.int64).clamp(0, x.shape[0] - 1)]
+
+
+def _update_codes_blocks(codes, blocks, obj_idx, obj_codes, blk_idx, nbr_rows) -> None:
+    """Write the new objects' codes and re-gather the blocks of every row
+    whose adjacency changed, in place."""
+    codes.index_copy_(0, obj_idx, obj_codes)
+    safe = nbr_rows.to(torch.int64).clamp(0, codes.shape[0] - 1)
+    blocks.index_copy_(0, blk_idx, codes[safe])
+
+
+def truncate_drop(graph: GraphStore, rows: np.ndarray, threshold: int):
+    """Phase 1 of optimal truncation (truncateEdgesOptimally,
+    Graph.cpp:947-1008): cap each over-threshold row at its ``threshold``
+    nearest edges and erase the reverse direction of every dropped edge.
+    Returns ``(dropped_targets, touched_rows)``."""
+    rows = np.unique(np.asarray(rows, np.int64))
+    rows = rows[(rows >= 0) & (rows < graph.capacity)]
+    over = rows[graph.degree[rows] > threshold]
+    if len(over) == 0:
+        return np.zeros((0,), np.int64), np.zeros((0,), np.int64)
+    tail_i = graph.nbr_ids[over, threshold:]
+    src = np.repeat(over, tail_i.shape[1])
+    tgt = tail_i.ravel().astype(np.int64)
+    keep = tgt >= 0
+    src, tgt = src[keep], tgt[keep]
+    graph.truncate_rows(over, threshold)
+    # reverse unlink: membership test on (tgt, src) pair keys
+    cap = graph.capacity
+    pair_keys = np.unique(tgt * cap + src)
+    utgt = np.unique(tgt)
+    utgt = utgt[graph._has_node[utgt]]
+    rows_i = graph.nbr_ids[utgt]
+    rows_d = graph.nbr_dist[utgt]
+    qkeys = utgt[:, None] * cap + np.where(rows_i >= 0, rows_i, 0)
+    hit = (rows_i >= 0) & np.isin(qkeys, pair_keys)
+    if hit.any():
+        rows_d[hit] = INF
+        rows_i[hit] = -1
+        order = np.argsort(rows_d, axis=1, kind="stable")
+        graph.nbr_dist[utgt] = np.take_along_axis(rows_d, order, axis=1)
+        graph.nbr_ids[utgt] = np.take_along_axis(rows_i, order, axis=1)
+        graph.degree[utgt] = (graph.nbr_ids[utgt] >= 0).sum(axis=1)
+    return utgt, np.unique(np.concatenate([over, utgt]))
+
+
+def truncate_relink(store: VectorStore, graph: GraphStore, prop: Property,
+                    mirror: DeviceMirror, utgt: np.ndarray, rep_rows, rep_sq,
+                    rep_ids_dev, metric) -> np.ndarray:
+    """Phase 2 of optimal truncation (Graph.cpp:1015-1103): search the
+    truncated graph for each dropped target (epsilon 0.1, s 10, width
+    max(32, 2k)) and link it both ways to its nearest node other than
+    itself, unless it finds itself first.  Returns the touched row ids."""
+    if len(utgt) == 0:
+        return np.zeros((0,), np.int64)
+    k = int(prop.edge_size_for_creation)
+    bits, exact = wrap_hash_bits(mirror.capacity, prop.visited_bits_log2)
+    q = torch.from_numpy(store._x[utgt]).to(store.device)
+    f_ids, f_d, _, _ = _fused_insert_search(
+        mirror, rep_rows, rep_sq, rep_ids_dev, q, 0.1, metric=metric, k=k, kb=0,
+        s=10, width=max(32, 2 * k), hash_bits=bits, exact_hash=exact,
+    )
+    f_ids, f_d = f_ids.cpu().numpy(), f_d.cpu().numpy()
+    self_hit = f_ids == utgt[:, None]
+    first_other = np.argmax((f_ids >= 0) & ~self_hit, axis=1)
+    near_i = np.take_along_axis(f_ids, first_other[:, None], axis=1)[:, 0]
+    near_d = np.take_along_axis(f_d, first_other[:, None], axis=1)[:, 0]
+    ok = (near_i >= 0) & np.isfinite(near_d) & ~self_hit[:, 0]
+    if not ok.any():
+        return np.zeros((0,), np.int64)
+    t = utgt[ok].astype(np.int64)
+    m = near_i[ok].astype(np.int32)
+    d = near_d[ok].astype(np.float32)
+    graph.add_edges(t, m, d)
+    graph.add_edges(m.astype(np.int64), t.astype(np.int32), d)
+    return np.unique(np.concatenate([t, m.astype(np.int64)]))
+
+
+#: per batch of the last ``build_anng`` run: (rows, seconds, graph_search
+#: steps); each batch ends with its results on the host, so the seconds
+#: hold its device work
+last_batches: list[tuple[int, float, int]] = []
+
+
+def build_anng(store: VectorStore, graph: GraphStore, seeder: Seeder, prop: Property,
+               pending: np.ndarray, mirror: DeviceMirror | None = None) -> DeviceMirror:
+    """Index every id in ``pending`` (stored objects without graph nodes)
+    in batches of ``device_batch_size`` (ngt_tpu/graph/build.py:1250-1533):
+
+    * a fresh graph bootstraps from the exact k-NN of its first batch;
+    * each batch searches the current graph (insertion epsilon
+      ``insertion_radius_coefficient - 1``) or, for KNNG and BKNNG, scans
+      exactly (``linear_search``); ``build_mode="sq8"`` traverses int8
+      neighbor blocks and re-ranks exactly;
+    * the intra-batch pairwise top-kb joins the candidates; IANNG keeps a
+      neighbor only where the new node would enter its k-NN;
+    * rows are set, reverse edges merged (all but KNNG), rows over
+      ``truncation_threshold`` dropped and relinked, and the changed rows
+      scattered into the mirror; the seeds refresh once the graph doubles;
+    * ``build_time_limit`` (minutes) halves the insertion epsilon, down to
+      0.02, while the projected build time exceeds it."""
+    k = int(prop.edge_size_for_creation)
+    eps = float(prop.insertion_radius_coefficient) - 1.0
+    metric = store.metric
+    dev = store.device
+    batch = int(prop.device_batch_size)
+    pending = np.asarray(pending, dtype=np.int32)
+    last_batches.clear()
+    if len(pending) == 0:
+        if mirror is None:
+            mirror = DeviceMirror(store, graph)
+            mirror.sync_full()
+        return mirror
+    graph.ensure_capacity(store._x.shape[0])
+
+    # bootstrap: the exact k-NN among the first batch (the reference grows
+    # from one object; an exact mini k-NN graph is one matmul)
+    start = 0
+    if graph.node_count() == 0:
+        b0 = min(batch, len(pending))
+        ids0 = pending[:b0]
+        q = torch.from_numpy(store._x[ids0]).to(dev)   # keeps uint8 for the bit metrics
+        d = D.pairwise(metric, q, q).cpu().numpy().copy()
+        np.fill_diagonal(d, INF)
+        kk = min(k, b0 - 1) if b0 > 1 else 0
+        if kk > 0:
+            nn = np.argsort(d, axis=1, kind="stable")[:, :kk]
+            nd = np.take_along_axis(d, nn, axis=1)
+            graph.set_nodes(ids0, ids0[nn].astype(np.int32), nd.astype(np.float32))
+            graph.add_edges(ids0[nn].ravel().astype(np.int64),
+                            np.repeat(ids0, kk).astype(np.int32),
+                            nd.ravel().astype(np.float32))
+            if prop.truncation_threshold > 0:
+                graph.truncate_rows(ids0.astype(np.int64), int(prop.truncation_threshold))
+        else:
+            graph.set_nodes(ids0, np.full((b0, 1), -1, np.int32),
+                            np.full((b0, 1), INF, np.float32))
+        start = b0
+        seeder.refresh(ids0, store._x, num_reps=min(1024, b0))
+
+    if mirror is None:
+        mirror = DeviceMirror(store, graph)
+    mirror.sync_full()
+    next_seed_refresh = max(2 * graph.node_count(), 1024)
+    if seeder.num_reps == 0 and graph.node_count() > 0:
+        live = np.nonzero(graph._has_node)[0].astype(np.int32)
+        seeder.refresh(live, store._x, num_reps=default_reps(len(live)))
+
+    def reps():
+        rows = torch.from_numpy(store._x[seeder.rep_ids]).to(dev)
+        return (rows, D.sq_norms(rows) if mirror.sqnorm is not None else None,
+                torch.from_numpy(seeder.rep_ids).to(dev, copy=True))
+
+    rep_rows, rep_sq, rep_ids_dev = reps()
+    # sq8 insertion search (opt-in: the reference measured that per-batch
+    # block maintenance costs more than the cheaper traversal saves)
+    sq8 = (prop.build_mode == "sq8" and metric in _SQ8_METRICS
+           and prop.graph_type not in (GraphType.KNNG, GraphType.BKNNG))
+    codes_dev = blocks_dev = None
+    sq8_scale = 1.0
+    if sq8:
+        sample = store._x[pending[: min(len(pending), 4096)]]
+        peak = float(np.abs(sample).max()) if len(sample) else 1.0
+        sq8_scale = max(peak * 1.25, 1e-30) / 127.0
+        codes_dev, blocks_dev = _make_codes_blocks(
+            mirror.x, mirror.nbr, torch.tensor(np.float32(1.0 / sq8_scale)))
+    exact_candidates = prop.graph_type in (GraphType.KNNG, GraphType.BKNNG)
+    limit_s = float(prop.build_time_limit) * 60.0
+    t_start = time.time()
+    for off in range(start, len(pending), batch):
+        t_batch = time.perf_counter()
+        if limit_s > 0 and off > start:
+            frac = (off - start) / max(len(pending) - start, 1)
+            projected = (time.time() - t_start) / max(frac, 1e-9)
+            if projected > limit_s and eps > 0.02:
+                eps = max(eps * 0.5, 0.02)
+        chunk = pending[off : off + batch]
+        bsz = len(chunk)
+        q = torch.from_numpy(store._x[chunk]).to(dev)
+        bits, exact = wrap_hash_bits(mirror.capacity, prop.visited_bits_log2)
+        kb = max(min(k, _bucket(bsz) - 1), 1)
+        steps = 0
+        if exact_candidates:
+            # KNNG/BKNNG: exact k-NN edges (searchForKNNGInsertion is a
+            # linear scan, Index.h:839-856)
+            f_ids, f_d = BF.linear_search(q, mirror.x, mirror.valid, metric, k,
+                                          x_sqnorm=mirror.sqnorm)
+            batch_nn = _batch_topk(metric, q, kb)
+        elif sq8:
+            qmax = float(np.abs(store._x[chunk]).max())
+            if qmax > 127.0 * sq8_scale:
+                # an outlier past the int8 range: double the scale until it
+                # fits and re-encode
+                while qmax > 127.0 * sq8_scale:
+                    sq8_scale *= 2.0
+                codes_dev, blocks_dev = _make_codes_blocks(
+                    mirror.x, mirror.nbr, torch.tensor(np.float32(1.0 / sq8_scale)))
+            f_ids, f_d, batch_nn, steps = _fused_insert_search_sq8(
+                mirror, blocks_dev, codes_dev, rep_rows, rep_sq, rep_ids_dev, q, eps,
+                torch.tensor(np.float32(1.0 / sq8_scale)), metric=metric, k=k, kb=kb,
+                s=max(prop.seed_size, 10), width=max(32, 2 * k), hash_bits=bits,
+                exact_hash=exact,
+            )
+        else:
+            f_ids, f_d, batch_nn, steps = _fused_insert_search(
+                mirror, rep_rows, rep_sq, rep_ids_dev, q, eps, metric=metric, k=k,
+                kb=kb, s=max(prop.seed_size, 10), width=max(32, 2 * k),
+                hash_bits=bits, exact_hash=exact, expand=max(prop.search_expand, 1),
+            )
+        found_i, found_d = f_ids.cpu().numpy(), f_d.cpu().numpy()
+        b_ids, b_d = (t.cpu().numpy() for t in batch_nn)
+
+        # intra-batch pairwise merge (reference Index.cpp:687-703): batch
+        # positions -> ids; empty entries masked
+        if bsz > 1:
+            bi = np.clip(b_ids, 0, bsz - 1)
+            bd = b_d.astype(np.float32)
+            cand_i = np.concatenate([found_i, np.where(np.isfinite(bd), chunk[bi], -1)], axis=1)
+            cand_d = np.concatenate([found_d, bd], axis=1)
+        else:
+            cand_i, cand_d = found_i, found_d
+        # never link a node to itself (a reused slot can alias a stale
+        # representative)
+        cand_i = np.where(cand_i == chunk[:, None], -1, cand_i)
+        cand_d = np.where(cand_i >= 0, cand_d, INF)
+        order = np.argsort(cand_d, axis=1, kind="stable")[:, :k]
+        sel_i = np.take_along_axis(cand_i, order, axis=1)
+        sel_d = np.take_along_axis(cand_d, order, axis=1)
+        sel_i[~np.isfinite(sel_d)] = -1
+
+        if prop.graph_type == GraphType.IANNG:
+            # mutual-k pruning (insertIANNGNode, Graph.h:628-635): keep a
+            # neighbor only if the new node would enter ITS current k-NN
+            tgt = np.clip(sel_i, 0, graph.capacity - 1)
+            kth = np.where(graph.degree[tgt] >= k,
+                           graph.nbr_dist[tgt, np.minimum(k, graph.e_max) - 1], INF)
+            drop = (sel_i >= 0) & (sel_d > kth)
+            sel_d[drop] = INF
+            sel_i[drop] = -1
+
+        graph.set_nodes(chunk, sel_i, sel_d)
+        ok = sel_i >= 0
+        if prop.graph_type != GraphType.KNNG:
+            # reverse edges (KNNG is directed: insertKNNGNode adds none,
+            # Graph.h:577-609)
+            graph.add_edges(sel_i[ok].astype(np.int64),
+                            np.repeat(chunk, ok.sum(axis=1)).astype(np.int32),
+                            sel_d[ok].astype(np.float32))
+        tr_tgts = None
+        tr_touched = np.zeros((0,), np.int64)
+        if prop.graph_type != GraphType.KNNG and prop.truncation_threshold > 0:
+            tr_tgts, tr_touched = truncate_drop(graph, sel_i[ok].astype(np.int64),
+                                                int(prop.truncation_threshold))
+        affected = np.unique(np.concatenate(
+            [chunk.astype(np.int64), sel_i[ok].astype(np.int64), tr_touched]))
+        mirror.update_rows(chunk, affected)
+        if tr_tgts is not None and len(tr_tgts):
+            touched2 = truncate_relink(store, graph, prop, mirror, tr_tgts, rep_rows,
+                                       rep_sq, rep_ids_dev, metric)
+            if len(touched2):
+                mirror.update_rows(None, touched2)
+        if sq8:
+            if codes_dev.shape[0] != mirror.capacity:
+                codes_dev, blocks_dev = _make_codes_blocks(
+                    mirror.x, mirror.nbr, torch.tensor(np.float32(1.0 / sq8_scale)))
+            else:
+                obj_codes = np.clip(np.round(store._x[chunk].astype(np.float32) / sq8_scale),
+                                    -127, 127).astype(np.int8)
+                _update_codes_blocks(
+                    codes_dev, blocks_dev, torch.from_numpy(chunk.astype(np.int64)).to(dev),
+                    torch.from_numpy(obj_codes).to(dev),
+                    torch.from_numpy(affected).to(dev),
+                    torch.from_numpy(graph.nbr_ids[affected]).to(dev),
+                )
+        if graph.node_count() >= next_seed_refresh:
+            live = np.nonzero(graph._has_node)[0].astype(np.int32)
+            seeder.refresh(live, store._x, num_reps=default_reps(len(live)))
+            next_seed_refresh = 2 * graph.node_count()
+            rep_rows, rep_sq, rep_ids_dev = reps()
+        last_batches.append((bsz, time.perf_counter() - t_batch, int(steps)))
+
+    live = np.nonzero(graph._has_node)[0].astype(np.int32)
+    seeder.refresh(live, store._x, num_reps=default_reps(len(live)))
+    return mirror
+
+
+# ------------------------------------------------------------------------
+# removal
+# ------------------------------------------------------------------------
+
+
+def _group_pairwise(metric, rows: torch.Tensor) -> torch.Tensor:
+    """Pairwise distances within each group of rows [C, E, D] -> [C, E, E]
+    in one batched call (the reference's ``jax.vmap`` of ``pairwise``);
+    sparse Jaccard, whose indicator matmul sizes itself by the ids present,
+    runs group by group."""
+    if DistanceType(metric) == DistanceType.SPARSE_JACCARD:
+        return torch.stack([D.pairwise(metric, r, r) for r in rows])
+    return torch.vmap(lambda r: D.pairwise(metric, r, r))(rows)
+
+
+def _nearest_in_groups(metric, rows: torch.Tensor, ok: torch.Tensor):
+    """Per member of each group: the nearest other live member (argmin,
+    first on ties) and its distance; dead members and the diagonal are
+    masked to +inf."""
+    d = _group_pairwise(metric, rows)
+    e = d.shape[1]
+    eye = torch.eye(e, dtype=torch.bool, device=d.device)
+    d = torch.where(~ok[:, :, None] | ~ok[:, None, :] | eye[None], INF, d)
+    nn = d.argmin(2)
+    return nn, d.gather(2, nn[:, :, None])[:, :, 0]
+
+
+def batch_remove_objects(store: VectorStore, graph: GraphStore, oids: np.ndarray,
+                         metric) -> np.ndarray:
+    """Delete a set of objects with batch-wide passes
+    (ngt_tpu/graph/build.py:1536-1629), the per-delete semantics of the
+    reference's ``removeEdgesReliably`` (Graph.cpp:641-864) for every id:
+
+    1. tombstone every removed node, keeping its former neighbor list;
+    2. one vectorized reverse scan drops every edge into the removed set;
+    3. repair: each removed node's surviving former neighbors are linked
+       both ways to their nearest surviving former co-neighbor, one batched
+       pairwise per chunk of ``(1 << 22) // E^2`` groups.
+
+    Returns the ids whose adjacency rows changed."""
+    oids = np.unique(np.asarray(oids, np.int64))
+    if len(oids) == 0:
+        return np.zeros((0,), np.int64)
+    n = store._x.shape[0]
+    graph.ensure_capacity(n)
+    cap = graph.capacity
+    gone = np.zeros(cap, bool)
+    gone[oids] = True
+    formers = graph.nbr_ids[oids].copy()               # [R, E]
+    graph.nbr_ids[oids] = -1
+    graph.nbr_dist[oids] = INF
+    graph.degree[oids] = 0
+    graph._has_node[oids] = False
+    rows_i = graph.nbr_ids[:n]
+    hit_rows = np.nonzero((gone[np.clip(rows_i, 0, cap - 1)] & (rows_i >= 0)).any(axis=1))[0]
+    graph.remove_edges_to_many(hit_rows, gone)
+    for oid in oids:
+        store.remove(int(oid))
+
+    fsafe = np.clip(formers, 0, n - 1)
+    fc = np.clip(formers, 0, cap - 1)
+    alive = (formers >= 0) & ~gone[fc] & graph._has_node[fc]   # [R, E]
+    touched = [oids, hit_rows.astype(np.int64)]
+    groups = np.nonzero(alive.sum(axis=1) >= 2)[0]
+    if len(groups):
+        e = formers.shape[1]
+        chunk = max(1, min(len(groups), (1 << 22) // max(e * e, 1)))
+        src_all, dst_all, d_all = [], [], []
+        for off in range(0, len(groups), chunk):
+            gsel = groups[off : off + chunk]
+            ok = alive[gsel]
+            nn, nd = _nearest_in_groups(
+                metric, torch.from_numpy(store._x[fsafe[gsel]]).to(store.device),
+                torch.from_numpy(ok).to(store.device))
+            nn, nd = nn.cpu().numpy(), nd.cpu().numpy()
+            gi, mi = np.nonzero(ok & np.isfinite(nd))
+            src_all.append(formers[gsel[gi], mi])
+            dst_all.append(formers[gsel[gi], nn[gi, mi]])
+            d_all.append(nd[gi, mi])
+        src = np.concatenate(src_all).astype(np.int64)
+        dst = np.concatenate(dst_all).astype(np.int32)
+        dd = np.concatenate(d_all).astype(np.float32)
+        graph.add_edges(src, dst, dd)
+        graph.add_edges(dst.astype(np.int64), src.astype(np.int32), dd)
+        touched += [src, dst.astype(np.int64)]
+    return np.unique(np.concatenate(touched))
+
+
+def remove_object(store: VectorStore, graph: GraphStore, oid: int, metric) -> np.ndarray:
+    """Delete one object: tombstone, a vectorized reverse scan that unlinks
+    it, and the local repair that links each former neighbor (out and in)
+    both ways to its nearest other former neighbor
+    (ngt_tpu/graph/build.py:1632-1676).  Returns the ids whose adjacency
+    rows changed, ``oid`` included."""
+    former = graph.remove_node(oid)
+    former = former[former >= 0]
+    n = store._x.shape[0]
+    hit_rows = np.nonzero((graph.nbr_ids[:n] == oid).any(axis=1))[0]
+    graph.remove_edges_to(hit_rows, oid)
+    store.remove(oid)
+    former = np.unique(np.concatenate([former, hit_rows.astype(np.int32)]))
+    former = former[(former != oid) & (former >= 0)]
+    former = former[graph._has_node[former]]
+    touched = [np.asarray([oid], np.int64), former.astype(np.int64)]
+    if len(former) >= 2:
+        rows = torch.from_numpy(store._x[former]).to(store.device)
+        d = D.pairwise(metric, rows, rows).cpu().numpy().copy()
+        np.fill_diagonal(d, INF)
+        nn = np.argmin(d, axis=1)
+        nd = d[np.arange(len(former)), nn]
+        graph.add_edges(former.astype(np.int64), former[nn].astype(np.int32),
+                        nd.astype(np.float32))
+        graph.add_edges(former[nn].astype(np.int64), former.astype(np.int32),
+                        nd.astype(np.float32))
+        touched.append(former[nn].astype(np.int64))
+    return np.unique(np.concatenate(touched))

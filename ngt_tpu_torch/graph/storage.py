@@ -9,61 +9,20 @@ f32 (+inf padded), rows sorted ascending by distance; a full row drops its
 farthest edge (``addEdgeDeletingExcessEdges``, Graph.h:888-934).
 
 A fresh bulk build leaves its adjacency on the device as torch tensors
-(``defer_rows``); the host copy materializes on first host access.
+(``defer_rows``); the host copy materializes on first host access.  The
+mutators follow the reference's: ``set_nodes`` replaces rows,
+``add_edges`` merges edges through the host graph library's
+``merge_edges`` (``ngt_tpu_torch/native.py``), and ``remove_node`` /
+``remove_edges_to`` / ``remove_edges_to_many`` unlink removed objects.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ngt_tpu_torch import native
+
 INF = np.float32(np.inf)
-
-
-def merge_edge_rows(uniq, cur_i, cur_d, targets, srcs, dists, e_max):
-    """Bounded sorted merge of add-edges into existing rows (pure numpy).
-
-    ``targets`` must be sorted ascending with ``uniq = unique(targets)`` and
-    ``cur_i/cur_d`` the current rows aligned with ``uniq``.  Returns
-    ``(new_i, new_d, new_deg)`` aligned with ``uniq``.  Semantics match the
-    reference's ``addEdgeDeletingExcessEdges`` (Graph.h:888-934): sorted
-    insert, duplicate (target, src) pairs skipped, farthest edge dropped
-    when a row is full."""
-    starts = np.searchsorted(targets, uniq)
-    counts = np.diff(np.append(starts, len(targets)))
-    a_max = int(counts.max())
-    nt = len(uniq)
-    slot = np.arange(len(targets)) - np.repeat(starts, counts)
-    add_i = np.full((nt, a_max), -1, dtype=np.int32)
-    add_d = np.full((nt, a_max), INF, dtype=np.float32)
-    grp = np.repeat(np.arange(nt), counts)
-    add_i[grp, slot] = srcs
-    add_d[grp, slot] = dists
-
-    # drop adds already present in the row
-    dup = (add_i[:, :, None] == cur_i[:, None, :]).any(axis=2)
-    # ... and duplicate (target, src) pairs within this batch (keep first)
-    if a_max <= 128:
-        eq = add_i[:, :, None] == add_i[:, None, :]
-        lower = np.tril(np.ones((a_max, a_max), bool), -1)
-        dup |= (eq & lower[None]).any(axis=2)
-    else:
-        for r in range(nt):
-            seen: set = set()
-            for j in range(a_max):
-                v = int(add_i[r, j])
-                if v in seen:
-                    dup[r, j] = True
-                seen.add(v)
-    dup |= add_i < 0
-    add_d[dup] = INF
-    add_i[dup] = -1
-
-    merged_d = np.concatenate([cur_d, add_d], axis=1)
-    merged_i = np.concatenate([cur_i, add_i], axis=1)
-    order2 = np.argsort(merged_d, axis=1, kind="stable")[:, :e_max]
-    new_d = np.take_along_axis(merged_d, order2, axis=1)
-    new_i = np.take_along_axis(merged_i, order2, axis=1)
-    return new_i, new_d, (new_i >= 0).sum(axis=1).astype(np.int32)
 
 
 class GraphStore:
@@ -150,34 +109,54 @@ class GraphStore:
         self.nbr_ids, self.nbr_dist, self.degree, self._has_node = ids, dist, deg, has
         return True
 
+    def has_node(self, oid: int) -> bool:
+        return 0 <= oid < self.capacity and bool(self._has_node[oid])
+
     def node_count(self) -> int:
         return int(self._has_node.sum())
+
+    def get_node(self, oid: int) -> tuple[np.ndarray, np.ndarray]:
+        """(neighbor ids, distances) of one node's row, nearest first."""
+        d = int(self.degree[oid])
+        return self.nbr_ids[oid, :d].copy(), self.nbr_dist[oid, :d].copy()
 
     # ------------------------------------------------------------ mutation --
     def add_edges(self, targets: np.ndarray, srcs: np.ndarray, dists: np.ndarray):
         """Bulk sorted-insert of edges target->src (the reverse-edge step of
         ANNG insertion; reference ``addEdge`` calls in insertANNGNode,
-        Graph.h:611-626).  Full rows drop the farthest edge.  Duplicate
-        (target, src) pairs are skipped like the reference's
-        ``addEdgeDeletingExcessEdges`` duplicate check (Graph.h:896-907)."""
+        Graph.h:611-626) through the host graph library's ``merge_edges``.
+        Full rows drop the farthest edge.  Duplicate (target, src) pairs
+        are skipped like the reference's ``addEdgeDeletingExcessEdges``
+        duplicate check (Graph.h:896-907)."""
         if len(targets) == 0:
             return
         targets = np.asarray(targets, dtype=np.int64)
-        srcs = np.asarray(srcs, dtype=np.int32)
-        dists = np.asarray(dists, dtype=np.float32)
         self.ensure_capacity(int(targets.max()) + 1)
-
-        order = np.argsort(targets, kind="stable")
-        targets, srcs, dists = targets[order], srcs[order], dists[order]
-        uniq = np.unique(targets)
-        new_i, new_d, new_deg = merge_edge_rows(
-            uniq, self.nbr_ids[uniq], self.nbr_dist[uniq],
-            targets, srcs, dists, self.e_max,
+        native.merge_edges(
+            self.nbr_ids, self.nbr_dist, self.degree,
+            self._has_node.view(np.uint8), targets, srcs, dists,
         )
-        self.nbr_ids[uniq] = new_i
-        self.nbr_dist[uniq] = new_d
-        self.degree[uniq] = new_deg
-        self._has_node[uniq] = True
+
+    def set_nodes(self, oids: np.ndarray, ids: np.ndarray, dists: np.ndarray):
+        """Replace whole rows (ids/dists [T, <=E_max], -1/inf padded)."""
+        oids = np.asarray(oids, dtype=np.int64)
+        self.ensure_capacity(int(oids.max()) + 1 if len(oids) else 0)
+        t, k = ids.shape
+        if k > self.e_max:
+            ids, dists = ids[:, : self.e_max], dists[:, : self.e_max]
+            k = self.e_max
+        row_i = np.full((t, self.e_max), -1, dtype=np.int32)
+        row_d = np.full((t, self.e_max), INF, dtype=np.float32)
+        row_i[:, :k] = ids
+        row_d[:, :k] = np.where(ids >= 0, dists, INF)
+        row_i[row_d == INF] = -1
+        order = np.argsort(row_d, axis=1, kind="stable")
+        row_d = np.take_along_axis(row_d, order, axis=1)
+        row_i = np.take_along_axis(row_i, order, axis=1)
+        self.nbr_ids[oids] = row_i
+        self.nbr_dist[oids] = row_d
+        self.degree[oids] = (row_i >= 0).sum(axis=1)
+        self._has_node[oids] = True
 
     def truncate_rows(self, oids: np.ndarray, threshold: int) -> None:
         """Cap the given rows to their `threshold` nearest edges (rows are
@@ -190,6 +169,46 @@ class GraphStore:
         self.nbr_ids[over, threshold:] = -1
         self.nbr_dist[over, threshold:] = INF
         self.degree[over] = threshold
+
+    def remove_node(self, oid: int) -> np.ndarray:
+        """Tombstone a node; returns its former neighbor ids.  The caller
+        unlinks the incoming edges (``build.remove_object``, the batched
+        analogue of removeEdgesReliably, Graph.cpp:641-864)."""
+        former = self.nbr_ids[oid, : self.degree[oid]].copy()
+        self.nbr_ids[oid] = -1
+        self.nbr_dist[oid] = INF
+        self.degree[oid] = 0
+        self._has_node[oid] = False
+        return former
+
+    def _drop_hits(self, targets: np.ndarray, hit_of) -> None:
+        """Blank the entries ``hit_of(rows_i)`` flags in the given rows and
+        re-sort them by distance (stable, so the survivors keep their
+        order)."""
+        targets = np.asarray(targets, dtype=np.int64)
+        targets = targets[(targets >= 0) & (targets < self.capacity)]
+        rows_i = self.nbr_ids[targets]
+        rows_d = self.nbr_dist[targets]
+        hit = hit_of(rows_i)
+        rows_d[hit] = INF
+        rows_i[hit] = -1
+        order = np.argsort(rows_d, axis=1, kind="stable")
+        self.nbr_dist[targets] = np.take_along_axis(rows_d, order, axis=1)
+        self.nbr_ids[targets] = np.take_along_axis(rows_i, order, axis=1)
+        self.degree[targets] = (self.nbr_ids[targets] >= 0).sum(axis=1)
+
+    def remove_edges_to(self, targets: np.ndarray, gone: int) -> None:
+        """Drop edges target->gone from the given rows."""
+        if len(targets):
+            self._drop_hits(targets, lambda r: r == gone)
+
+    def remove_edges_to_many(self, targets: np.ndarray, gone_mask: np.ndarray) -> None:
+        """Drop every edge target->g with ``gone_mask[g]`` from the given
+        rows in one vectorized pass (the batched unlink behind
+        ``Index.batch_remove``)."""
+        if len(targets):
+            self._drop_hits(targets, lambda r: gone_mask[
+                np.clip(r, 0, len(gone_mask) - 1)] & (r >= 0))
 
     # --------------------------------------------------------- persistence --
     def state_dict(self, n: int) -> dict:

@@ -10,12 +10,17 @@ files, ``seeds.npz``, ``meta.json``), so each package opens the other's
 indexes.
 
 Every entry point runs on ``device`` (default ``"cuda"``).  The port
-covers every metric and object type of the reference, the bulk build of a
-fresh index and both search routes: the exact-graph route, and the
-quantized-graph route (``quant/qgraph.py``) that ``batch_search`` takes
-with default properties at ``search_qg_threshold`` (5,000) nodes or more
-for the metrics its sq8 codes serve.  Anything else raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+covers every metric and object type of the reference; the bulk build of a
+fresh index and of large appends, the incremental ANNG build of smaller
+appends (``build_algorithm``, ``bulk_append_threshold``), removal
+(``remove``, ``batch_remove``), graph inspection (``get_edges``,
+``check_graph``, ``statistics``) and both search routes: the exact-graph
+route, and the quantized-graph route (``quant/qgraph.py``) that
+``batch_search`` takes with default properties at ``search_qg_threshold``
+(5,000) nodes or more for the metrics its sq8 codes serve.  Routes not
+ported yet raise ``NotImplementedError`` naming the ROADMAP item that ports
+them; the reference's ``batch_insert_dedup``, text export and import and
+memory-mapped open are absent (ROADMAP Queue 1, M8).
 """
 
 from __future__ import annotations
@@ -23,12 +28,20 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ngt_tpu_torch.graph.build import _SQ8_METRICS, DeviceMirror, build_bulk
+from ngt_tpu_torch.graph.build import (
+    _SQ8_METRICS,
+    DeviceMirror,
+    batch_remove_objects,
+    build_anng,
+    build_bulk,
+    remove_object,
+)
 from ngt_tpu_torch.graph.search import seeded_search, wrap_hash_bits
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.ops import bruteforce as BF
@@ -86,6 +99,9 @@ class Index:
             out = np.where(out >= 0, out - 1, out)
         return out
 
+    def _int(self, external) -> int:
+        return int(external) + 1 if self.zero_based else int(external)
+
     # --------------------------------------------------------- mutation ----
     def insert(self, v) -> int:
         """Insert one vector (no graph node yet — call build_index)."""
@@ -100,7 +116,10 @@ class Index:
 
     def build_index(self, num_threads: int = 0) -> None:
         """Create graph nodes for all unindexed objects (Index::createIndex,
-        Index.cpp:609-629).  A fresh index takes the bulk build."""
+        Index.cpp:609-629).  ``build_algorithm`` "bulk" always takes the
+        bulk build, "auto" takes it for a fresh index and for appends of at
+        least ``bulk_append_threshold`` objects, and everything else takes
+        the incremental ANNG build (ngt_tpu/index.py:223-244)."""
         del num_threads
         n = self.store.repository_size
         self.graph.ensure_capacity(self.store._x.shape[0])
@@ -110,14 +129,54 @@ class Index:
         if len(pending) == 0:
             return
         algo = self.prop.build_algorithm
-        if algo not in ("auto", "bulk") or self.graph.node_count() > 0:
-            raise NotImplementedError(
-                "incremental ANNG build and appends to a built graph are not "
-                "ported yet (ROADMAP Queue 1, M11)"
-            )
-        self._mirror = build_bulk(
+        fresh = self.graph.node_count() == 0
+        big_append = len(pending) >= self.prop.bulk_append_threshold
+        build = build_bulk if algo == "bulk" or (
+            algo == "auto" and (fresh or big_append)) else build_anng
+        self._mirror = build(
             self.store, self.graph, self.seeder, self.prop, pending, self._mirror,
         )
+
+    def _resample_seeds(self, gone: np.ndarray) -> None:
+        """Resample the representatives when a removed object was one (the
+        reference replaces the removed tree slot, Index.h:1423-1453)."""
+        if self.seeder.num_reps and np.isin(self.seeder.rep_ids, gone).any():
+            live = np.nonzero(self.store._valid[: self.store.repository_size])[0]
+            self.seeder.refresh(live.astype(np.int32), self.store._x,
+                                self.seeder.num_reps)
+
+    def remove(self, external_id: int) -> None:
+        """Delete one object (ngt_tpu/index.py:248-271): its slot goes to
+        the free list, its graph neighborhood is repaired, and the changed
+        rows are scattered into the device mirror."""
+        oid = self._int(external_id)
+        if not self.store.contains(oid):
+            raise KeyError(f"no such object id: {external_id}")
+        touched = remove_object(self.store, self.graph, oid, self.store.metric)
+        if self._mirror is not None:
+            self._mirror.update_rows(touched, touched)
+        self._resample_seeds(np.asarray([oid]))
+
+    def batch_remove(self, external_ids) -> None:
+        """Delete a set of objects with batch-wide passes: one reverse scan,
+        one repair, one mirror scatter (ngt_tpu/index.py:273-298)."""
+        oids = np.unique([self._int(e) for e in np.asarray(external_ids).ravel()])
+        for oid in oids:
+            if not self.store.contains(int(oid)):
+                raise KeyError(f"no such object id: {oid}")
+        touched = batch_remove_objects(self.store, self.graph, oids, self.store.metric)
+        if self._mirror is not None:
+            self._mirror.update_rows(touched, touched)
+        self._resample_seeds(oids)
+
+    def get_edges(self, external_id: int) -> list[tuple[int, float]]:
+        """Sorted (neighbor id, distance) edges of one graph node (the
+        analogue of ngt_get_edges), ids in this index's id base."""
+        oid = self._int(external_id)
+        if not self.graph.has_node(oid):
+            raise KeyError(f"no graph node for id {external_id}")
+        ids, dists = self.graph.get_node(oid)
+        return [(int(self._ext(int(i))), float(d)) for i, d in zip(ids, dists) if i >= 0]
 
     def make_sparse_object(self, ids) -> np.ndarray:
         """Pack a feature-id set for a Sparse-Jaccard index (the analogue of
@@ -132,7 +191,7 @@ class Index:
         return np.int64 if self.store.sparse else np.float32
 
     def get_object(self, external_id: int) -> np.ndarray:
-        return self.store.get(int(external_id) + (1 if self.zero_based else 0))
+        return self.store.get(self._int(external_id))
 
     def __len__(self) -> int:
         return len(self.store)
@@ -355,6 +414,87 @@ class Index:
         errs.extend(self.seeder.verify(live, self.store._x[:n]))
         return errs
 
+    def check_graph(self, sample: int = 1024, seed: int = 0) -> dict:
+        """Re-derive sampled nodes' edges by exact search on the store's
+        device and compare them with the stored rows (the reference's
+        checkGraph, Index.h:886-938; ngt_tpu/index.py:774-822).  Returns
+        {'checked', 'mean_overlap', 'min_overlap', 'divergent'}: the
+        overlap is the share of a node's stored edges found among its
+        exact top-(degree) neighbors; 'divergent' counts nodes below 1."""
+        n = self.store.repository_size
+        live = np.nonzero(self.store._valid[:n] & self.graph._has_node[:n])[0]
+        if len(live) == 0:
+            return {"checked": 0, "mean_overlap": 1.0, "min_overlap": 1.0,
+                    "divergent": 0}
+        rng = np.random.default_rng(seed)
+        pick = live if len(live) <= sample else np.sort(
+            rng.choice(live, sample, replace=False))
+        deg = self.graph.degree[pick].astype(np.int64)
+        kmax = int(max(deg.max(), 1))
+        x, valid, sqn = self.store.device_arrays()
+        q = torch.from_numpy(self.store._x[pick]).to(self.device)
+        # k+1: the exact list holds the node itself at distance 0
+        ids, _ = BF.linear_search(q, x, valid, self.store.metric, kmax + 1, x_sqnorm=sqn)
+        ids = ids.cpu().numpy()
+        ids = np.where(ids == pick[:, None], -1, ids)
+        stored = self.graph.nbr_ids[pick]
+        overlaps = np.empty(len(pick), np.float64)
+        for i in range(len(pick)):
+            d = int(deg[i])
+            if d == 0:
+                overlaps[i] = 1.0
+                continue
+            exact = set(ids[i][ids[i] >= 0][:d].tolist())
+            overlaps[i] = sum(1 for e in stored[i, :d] if int(e) in exact) / d
+        return {
+            "checked": int(len(pick)),
+            "mean_overlap": float(overlaps.mean()),
+            "min_overlap": float(overlaps.min()),
+            "divergent": int((overlaps < 1.0).sum()),
+        }
+
+    def statistics(self) -> dict:
+        """Graph statistics (the analogue of showStatisticsOfGraph,
+        Index.cpp:800-1154; ngt_tpu/index.py:824-866): out- and in-degree,
+        edge lengths and the mean length of the first 10 edges."""
+        n = self.store.repository_size
+        has = self.graph._has_node[:n]
+        deg = self.graph.degree[:n][has]
+        nbr = self.graph.nbr_ids[:n]
+        dist = self.graph.nbr_dist[:n]
+        in_rng = np.arange(nbr.shape[1])[None, :] < self.graph.degree[:n][:, None]
+        edges = nbr[in_rng]
+        indeg = (np.bincount(edges[edges >= 0], minlength=n)[has]
+                 if len(edges) else np.zeros(0, int))
+        lens = dist[in_rng]
+        lens = lens[np.isfinite(lens)]
+        d10 = dist[:, : min(10, dist.shape[1])]
+        d10 = d10[np.isfinite(d10)]
+
+        def stat(a, f, empty):
+            return f(a) if len(a) else empty
+
+        return {
+            "nodes": int(has.sum()),
+            "edges": int(deg.sum()),
+            "outdegree": {
+                "min": stat(deg, lambda a: int(a.min()), 0),
+                "mean": stat(deg, lambda a: float(a.mean()), 0.0),
+                "max": stat(deg, lambda a: int(a.max()), 0),
+                "histogram": stat(deg, lambda a: np.bincount(a).tolist(), []),
+            },
+            "indegree": {
+                "min": stat(indeg, lambda a: int(a.min()), 0),
+                "mean": stat(indeg, lambda a: float(a.mean()), 0.0),
+                "max": stat(indeg, lambda a: int(a.max()), 0),
+                "zero": stat(indeg, lambda a: int((a == 0).sum()), 0),
+            },
+            "edge_length": {
+                "mean": stat(lens, lambda a: float(a.mean()), 0.0),
+                "mean_10nn": stat(d10, lambda a: float(a.mean()), 0.0),
+            },
+        }
+
     # ------------------------------------------------------- persistence ----
     def save(self, path: Optional[str] = None) -> None:
         path = path or self.path
@@ -433,6 +573,11 @@ class Index:
         self._mirror = None
         self._qg = None
         self.store.release_device()
+
+    @staticmethod
+    def destroy(path: str) -> None:
+        """Delete an index directory (NGT::Index::destroy, Index.h:496)."""
+        shutil.rmtree(path)
 
 
 # ---------------------------------------------------------------- factory ---

@@ -1,0 +1,152 @@
+"""The port's host graph library (the counterpart of the union-find and
+edge-merge half of ``ngt_tpu/native``): ``csrc/host_graph.cpp`` built by
+``g++ -O3 -shared -fPIC`` at first use and called through ctypes.
+
+The library lands in ``build/ngt_tpu_torch/<hash of the source and
+flags>/`` at the repository root (git-ignored), written under a temporary
+name and moved into place with ``os.replace``, so concurrent first uses and
+a build cut off part way never leave a library that a later run would load.
+A failed build raises with the compiler's output; nothing falls back to
+numpy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from ngt_tpu_torch.ops._build import BUILD_ROOT, CSRC
+
+SOURCE = os.path.join(CSRC, "host_graph.cpp")
+FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-std=c++17"]
+LIB_NAME = "libngt_tpu_torch_host.so"
+
+_lock = threading.Lock()
+_lib = None
+
+_I32 = ctypes.POINTER(ctypes.c_int32)
+_I64 = ctypes.POINTER(ctypes.c_int64)
+_F32 = ctypes.POINTER(ctypes.c_float)
+_U8 = ctypes.POINTER(ctypes.c_uint8)
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    with open(SOURCE, "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
+
+
+def _build(out: str) -> None:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    try:
+        res = subprocess.run(
+            ["g++", *FLAGS, "-o", tmp, SOURCE],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed on {SOURCE}:\n{res.stdout}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load() -> ctypes.CDLL:
+    """The host graph library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out = library_path()
+            if not os.path.exists(out):
+                _build(out)
+            lib = ctypes.CDLL(out)
+            lib.merge_edges.restype = None
+            lib.merge_edges.argtypes = [
+                _I32, _F32, _I32, _U8, ctypes.c_int64, _I64, _I32, _F32,
+                ctypes.c_int64,
+            ]
+            lib.connected_components.restype = ctypes.c_int64
+            lib.connected_components.argtypes = [
+                _I32, _U8, ctypes.c_int64, ctypes.c_int64, _I32,
+            ]
+            lib.union_pairs.restype = ctypes.c_int64
+            lib.union_pairs.argtypes = [_I32, ctypes.c_int64, _I32, _I32, ctypes.c_int64]
+            _lib = lib
+    return _lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctype)
+
+
+def merge_edges(nbr_ids: np.ndarray, nbr_dist: np.ndarray, degree: np.ndarray,
+                has_node: np.ndarray, targets: np.ndarray, srcs: np.ndarray,
+                dists: np.ndarray) -> None:
+    """In-place bulk merge of the edges ``targets[i] -> srcs[i]`` into the
+    fixed-width rows (``nbr_ids``/``nbr_dist`` [cap, e_max], ``degree``
+    [cap] int32, ``has_node`` [cap] uint8 view): sorted insert, duplicate
+    (target, src) pairs skipped, the farthest edge dropped from a full row
+    (ngt_tpu/native/__init__.py:526-551)."""
+    for name, arr, dtype in (("nbr_ids", nbr_ids, np.int32),
+                             ("nbr_dist", nbr_dist, np.float32),
+                             ("degree", degree, np.int32),
+                             ("has_node", has_node, np.uint8)):
+        if arr.dtype != dtype or not arr.flags.c_contiguous:
+            raise ValueError(f"merge_edges: {name} must be C-contiguous {np.dtype(dtype)}")
+    cap = nbr_ids.shape[0]
+    if nbr_dist.shape != nbr_ids.shape or degree.shape != (cap,) or has_node.shape != (cap,):
+        raise ValueError("merge_edges: graph arrays of mismatched shapes")
+    targets = np.ascontiguousarray(targets, np.int64)
+    srcs = np.ascontiguousarray(srcs, np.int32)
+    dists = np.ascontiguousarray(dists, np.float32)
+    if not len(targets) == len(srcs) == len(dists):
+        raise ValueError("merge_edges: targets, srcs and dists differ in length")
+    if len(targets) and (targets.min() < 0 or targets.max() >= cap):
+        raise ValueError(f"merge_edges: a target lies outside rows [0, {cap})")
+    load().merge_edges(
+        _ptr(nbr_ids, _I32), _ptr(nbr_dist, _F32), _ptr(degree, _I32),
+        _ptr(has_node, _U8), np.int64(nbr_ids.shape[1]), _ptr(targets, _I64),
+        _ptr(srcs, _I32), _ptr(dists, _F32), np.int64(len(targets)),
+    )
+
+
+def connected_components(nbr_ids: np.ndarray, has_node: np.ndarray) -> tuple[np.ndarray, int]:
+    """Component label (the union-find root id) per node, -1 for
+    non-nodes; returns (labels, component count)
+    (ngt_tpu/native/__init__.py:183-225)."""
+    n, e_max = nbr_ids.shape
+    if len(has_node) != n:
+        raise ValueError("connected_components: has_node and nbr_ids differ in rows")
+    nbr_c = np.ascontiguousarray(nbr_ids, np.int32)
+    has_c = np.ascontiguousarray(np.asarray(has_node, bool).view(np.uint8))
+    labels = np.empty(n, np.int32)
+    roots = load().connected_components(
+        _ptr(nbr_c, _I32), _ptr(has_c, _U8), np.int64(n), np.int64(e_max),
+        _ptr(labels, _I32),
+    )
+    return labels, int(roots)
+
+
+def union_pairs(labels: np.ndarray, a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, int]:
+    """Union the representative-id pairs ``(a[i], b[i])`` into a component
+    labeling (a representative node id per node, -1 for non-nodes); returns
+    (min-id labels, component count) (ngt_tpu/native/__init__.py:228-276)."""
+    out = np.ascontiguousarray(labels, np.int32).copy()
+    a = np.ascontiguousarray(a, np.int32)
+    b = np.ascontiguousarray(b, np.int32)
+    if len(a) != len(b):
+        raise ValueError("union_pairs: a and b differ in length")
+    if len(out) and (out.min() < -1 or out.max() >= len(out)):
+        raise ValueError("union_pairs: a label lies outside [-1, n)")
+    comps = load().union_pairs(
+        _ptr(out, _I32), np.int64(len(out)), _ptr(a, _I32), _ptr(b, _I32),
+        np.int64(len(a)),
+    )
+    return out, int(comps)

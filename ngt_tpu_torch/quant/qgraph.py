@@ -302,19 +302,19 @@ class QuantizedGraphIndex:
             grown[: self.codes.shape[0]] = self.codes
             self.codes = grown
             stale = True
-        if stale:
-            n = store.repository_size
-            live = store._valid[:n]
-            self.codes[:] = 0
-            if live.any():
-                self.codes[:n][live] = self._encode_rows(
-                    store._x[:n][live].astype(np.float32)
-                )
-            self._codes_mut = store.mutation_count
-            self._codes_dev = None
-            self._codes_host_stale = False
-        if self._codes_dev is None:
-            self._codes_dev = torch.from_numpy(self.codes).to(store.device, copy=True)
+        if stale or self._codes_dev is None:
+            with _stage("quantize", store.device):
+                if stale:
+                    n = store.repository_size
+                    live = store._valid[:n]
+                    self.codes[:] = 0
+                    if live.any():
+                        self.codes[:n][live] = self._encode_rows(
+                            store._x[:n][live].astype(np.float32)
+                        )
+                    self._codes_mut = store.mutation_count
+                    self._codes_host_stale = False
+                self._codes_dev = torch.from_numpy(self.codes).to(store.device, copy=True)
         return self._codes_dev
 
     def _host_codes(self) -> np.ndarray:

@@ -246,3 +246,46 @@ def test_metric_distances_on_the_card_match_cpu(cuda, metric):
     ci, cd = TB.linear_search(tq, tx, valid, metric, 10)
     close(gd, cd)
     assert (gi.cpu() == ci).double().mean() >= 0.999
+
+
+def _mirror_after_mutations(dev, integral: bool):
+    """An index on ``dev`` after a bulk build, an incremental append, a
+    batch removal, a single removal and an append into the freed slots;
+    returns it with its mirror's tensors, which ``update_rows`` kept."""
+    import ngt_tpu_torch
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1300, 32)).astype(np.float32)
+    if integral:
+        x = np.rint(np.clip(x * 40 + 128, 0, 255)).astype(np.float32)
+    idx = ngt_tpu_torch.create(None, dimension=32, device=dev, device_batch_size=256)
+    idx.batch_insert(x[:1000], build=True)
+    idx.batch_insert(x[1000:1200], build=True)
+    idx.batch_remove(np.arange(10, 60))
+    idx.remove(3)
+    idx.batch_insert(x[1200:1300], build=True)
+    m = idx._mirror
+    if integral:
+        # a row the u8 mirror cannot hold: the scatter widens it to f32
+        assert m.x.dtype == torch.uint8
+        idx.store._x[5, :32] += np.float32(1.0 / 3.0)
+        m.update_rows(np.array([5]), None)
+    return idx, [t.clone() for t in (m.x, m.valid, m.nbr, m.sqnorm)]
+
+
+@pytest.mark.parametrize("integral", [False, True], ids=["f32", "u8-widened"])
+def test_update_rows_on_the_card_matches_sync_full(cuda, integral):
+    """The mirror that the per-batch and per-removal scatters leave on the
+    card equals a full upload of the same host state: rows, valid bits and
+    adjacency exactly, squared norms to rtol 1e-6 (host and device sums).
+    The integral corpus keeps a u8 mirror through the mutations, until a
+    row it cannot hold widens it to f32."""
+    from ngt_tpu_torch.graph.build import DeviceMirror
+
+    idx, (x, valid, nbr, sq) = _mirror_after_mutations(cuda, integral)
+    assert x.dtype == torch.float32
+    ref = DeviceMirror(idx.store, idx.graph)
+    ref.sync_full()
+    torch.testing.assert_close(x, ref.x.to(torch.float32), rtol=0, atol=0)
+    assert torch.equal(valid, ref.valid) and torch.equal(nbr, ref.nbr)
+    torch.testing.assert_close(sq, ref.sqnorm, rtol=1e-6, atol=1e-4)

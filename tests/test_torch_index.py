@@ -102,8 +102,7 @@ def test_unported_routes_raise(data, monkeypatch):
     t.prop.search_mode = "qg"
     with pytest.raises(NotImplementedError, match="M12"):
         t.batch_search(base[:2])
-    with pytest.raises(NotImplementedError, match="M11"):
-        t.batch_insert(base[:5])            # append to a built graph
+    assert list(t.batch_insert(base[:5])) == [300, 301, 302, 303, 304]   # append
     with pytest.raises(NotImplementedError, match="M14"):
         t.batch_search(base[:2], expected_accuracy=0.9)
 
@@ -163,6 +162,9 @@ def test_port_runs_without_jax():
         "idx.batch_insert(x, build=True)\n"
         "ids, _ = idx.batch_search(x[:5], size=3)\n"
         "assert list(ids[:, 0]) == [0, 1, 2, 3, 4], ids\n"
+        "idx.remove(3)\n"                              # the g++-built host library
+        "assert list(idx.batch_insert(x[:2])) == [3, 300]\n"
+        "assert idx.verify() == []\n"
         "assert not any(m.startswith('jax') for m in sys.modules if sys.modules[m])\n"
         "print('ok')\n"
     )
