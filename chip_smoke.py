@@ -8,7 +8,8 @@ properties -> ``batch_insert(build=True)`` (the bulk build, whose candidate
 scan runs the hand-written window-scan kernel) -> ``batch_search``, which
 takes the quantized-graph (qg) route at this size — then the exact-graph
 route on the same index, then appends to and removals from the same live
-index, and checks each result:
+index, then the routes past the sq8 block budget on the same rows (pq4
+codes, the IVFPQ mirror), and checks each result:
 
  1. device: the card's name and power limit;
  2. build of the CUDA kernels from ``ngt_tpu_torch/csrc`` (plain nvcc): its
@@ -83,9 +84,38 @@ index, and checks each result:
     generator): bulk build, a ``build_anng`` append of 2,048 rows,
     ``batch_remove`` of 512, a bulk append of 4,096, each on the card and
     on the CPU port: adjacency and exact-route ids on >= 99.9% of entries
-    after each step.
+    after each step;
+16. the pq4 route, run inside phase 5's run right after phase 14: phase
+    9's save opened afresh under NGT_TPU_QG_BLOCK_GB=0.75 (set in-process,
+    restored after), where 8 sq8 block columns no longer fit: the default
+    route quantizes to pq4 (mode, subspaces, eb against the width rule at
+    the opened capacity, refine), the 10,000 held-out queries at epsilon
+    0.1 in one chunk with the stage timer on (quantize split into the
+    codebook fit and the encode, block gather, seeds, traversal steps,
+    re-rank, refine), recall@10 above PQ4_RECALL_FLOOR beside phase 7's
+    sq8 recall, queries/s; save + open through ``QuantizedGraphIndex``:
+    identical ids;
+17. the IVFPQ crossover: the same save opened afresh under
+    NGT_TPU_QG_MAX_GB=1, past the qg size ceiling: ``batch_search`` builds
+    the auto IVFPQ mirror (488 centroids; its build split: coarse k-means,
+    PQ fit, assign and encode, ``host_blocks``, upload), recall@10 of the
+    held-out queries at nprobe 32, expansion 16, refine above
+    IVFPQ_RECALL_FLOOR, queries/s; ``IVFPQIndex.verify() == []``; save +
+    open: identical ids; ``batch_remove`` of 1,000 ids rebuilds the mirror
+    and no removed id is served; then ``optimize_seeds`` (seconds) and the
+    exact route's self-hits of phase 8's 1,000 rows beside phase 8's
+    (printed only);
+18. card against CPU for the quantization at 8,192 rows (the phase 11
+    generator): the pq4 qg route with codebooks fitted on the card and
+    carried to the CPU port (packed codes byte-equal, ids on >= 99.9% of
+    entries), an ``IVFPQIndex`` built on the card and carried to the CPU in
+    the approx, refine and exact modes and with the raw rows in an mmap
+    file (ids on >= 99.9% of entries), and k-means from one host-drawn
+    init on both (MSE within 1%).
 
-It prints a few dozen short lines as it goes, then one JSON line of the
+Phases 16-18 launch no hand kernel (pq4, k-means and IVFPQ are torch
+code), so the kernels line lists the window-scan kernel's launches by
+path only.  It prints a few dozen short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
 Any failure raises, so the run exits non-zero and prints no result; so
 does a machine without a CUDA device.  Data is generated from a seed.
@@ -135,6 +165,21 @@ N_METRIC, N_METRIC_Q, METRIC_DIM = 4096, 256, 64
 #: clusters, a second stream), ids of the batch removal and of the single
 #: removals, rows of the incremental append (two batches of 1,024)
 N_APPEND, N_REMOVE, N_SINGLE, N_INCR = 40_000, 10_000, 16, 2048
+#: phase 16: the block budget under which phase 9's 1M index no longer fits
+#: 8 sq8 block columns (0.75 GiB / (1,000,001 x 128 B) = 6), so the default
+#: route quantizes to pq4
+PQ4_BLOCK_GB = 0.75
+#: phase 17: the size ceiling under which even the 8-column sq8 blocks and
+#: codes of that index (1.07 GiB) do not fit, so batch_search builds the
+#: auto IVFPQ mirror
+IVFPQ_MAX_GB = 1.0
+#: recall@10 floors of phases 16 (pq4) and 17 (the IVFPQ mirror at nprobe
+#: 32, expansion 16): the first H100 run's values (0.6080 and 0.9874,
+#: NVIDIA H100 80GB HBM3 at 700 W; PERF.md) less 1.5 points.  pq4's 4-bit
+#: codes over 2-dim subspaces blur the neighbourhoods of this clustered
+#: corpus, in the reference as in the port (tests/pq4_recall_vs_jax.py)
+PQ4_RECALL_FLOOR = 0.593
+IVFPQ_RECALL_FLOOR = 0.9724
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM bytes/s
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
@@ -430,6 +475,7 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
                                 held, gt, "qg route", kind)
         if rec < QG_RECALL_FLOOR:
             raise AssertionError(f"qg recall@10 {rec:.4f} below {QG_RECALL_FLOOR}")
+        sq8_rec = rec
         # the same call in one chunk: the ids must not change, and the time
         # shows what the 512-query chunks cost
         os.environ["NGT_TPU_QG_CHUNK"] = str(n_held)
@@ -487,6 +533,13 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
         idx.prop.search_mode = "auto"
         append_launches, live_s = live_index(idx, base, held, extra, dev, kind, tmp)
         idx.close()
+        del idx
+        torch.cuda.empty_cache()
+
+        # 16-17. phase 9's save on the routes past the sq8 budget
+        pq4_route(path, base, held, gt, sel, sq8_rec, dev, kind, tmp)
+        torch.cuda.empty_cache()
+        ivfpq_crossover(path, base, held, gt, sel, hits, dev, kind, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches, append_launches, live_s
@@ -636,6 +689,242 @@ def live_index(idx, base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, 
     secs = time.time() - t_phase
     log(f"live index: phase total {secs:.1f} s")
     return launches, secs
+
+
+def stage_env(**env):
+    """Sets the environment variables given (None unsets one) and returns
+    a function that restores the earlier values."""
+    old = {k: os.environ.get(k) for k in env}
+
+    def put(vals):
+        for k, v in vals.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(env)
+    return lambda: put(old)
+
+
+def pq4_route(path: str, base: np.ndarray, held: np.ndarray, gt: np.ndarray, sel: np.ndarray,
+              sq8_rec: float, dev, kind: str, tmp: str) -> None:
+    """Phase 16: phase 9's saved 1M index opened afresh under
+    NGT_TPU_QG_BLOCK_GB=0.75, where 8 sq8 block columns no longer fit: the
+    default route quantizes to pq4 and serves the held-out queries in one
+    chunk with the stage timer on; recall@10 against the exact ground
+    truth above PQ4_RECALL_FLOOR; save + open through
+    QuantizedGraphIndex: identical ids."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.quant import qgraph as QG
+
+    restore = stage_env(NGT_TPU_QG_BLOCK_GB=str(PQ4_BLOCK_GB), NGT_TPU_QG_PROFILE="1",
+                        NGT_TPU_QG_CHUNK=str(len(held)))
+    try:
+        t0 = time.time()
+        idx = ngt_tpu_torch.open_index(path, device=dev)
+        idx.prop.search_mode = "auto"   # phase 9 saved phase 8's "exact"
+        log(f"pq4 route: open_index of phase 9's save: {time.time() - t0:.1f} s")
+        QG.last_profile.clear()
+        graph_search.steps, graph_search.wait_s = 0, 0.0
+        t0 = time.time()
+        found, _ = idx.batch_search(held, size=10, epsilon=0.1)
+        secs = time.time() - t0
+        qg = idx._qg
+        if qg is None or qg.mode != "pq4":
+            raise AssertionError("the default route did not take pq4 under the tight budget")
+        cap = idx.store._x.shape[0]
+        eb = qg._dev_blocks()[1].shape[1]
+        # the reference's width rule at this capacity and packed width
+        budget = int(PQ4_BLOCK_GB * (1 << 30)) // (cap * qg.codes.shape[1])
+        want_eb = min(idx.graph.e_max, max(max(8, min(16, budget)), budget))
+        log(f"pq4 route: mode {qg.mode}, {qg.pq.m} subspaces of {qg.pq.ksub} centroids, "
+            f"packed codes {qg.codes.shape[1]} bytes a row, capacity {cap}, eb {eb} of "
+            f"{idx.graph.e_max} (the width rule gives {want_eb}), refine "
+            f"{qg._resolve_refine(idx.graph.e_max, eb)}")
+        if eb != want_eb:
+            raise AssertionError(f"pq4 blocks are {eb} wide, the width rule gives {want_eb}")
+        rec = BF.recall_at_k(found, gt, 10)
+        once = sum(QG.last_profile.get(st, 0.0) for st in ("quantize", "blocks"))
+        log(f"pq4 route: recall@10 {rec:.4f} at epsilon 0.1 (phase 7's sq8: {sq8_rec:.4f}), "
+            f"{len(held) / secs:.0f} queries/s in one chunk of {len(held)} ({secs:.2f} s, "
+            f"{graph_search.steps} steps; {len(held) / max(secs - once, 1e-9):.0f} queries/s "
+            f"without the quantize and block gather) on {kind}; where the time went:")
+        for label in ("fit", "encode"):
+            sec = QG.last_profile.get(label, 0.0)
+            log(f"  quantize, {label}: {sec * 1e3:.1f} ms")
+        qg_split(secs, 1)
+        if rec < PQ4_RECALL_FLOOR:
+            raise AssertionError(f"pq4 recall@10 {rec:.4f} below {PQ4_RECALL_FLOOR}")
+        os.environ.pop("NGT_TPU_QG_PROFILE")
+        t0 = time.time()
+        qg.save(os.path.join(tmp, "pq4"))
+        qg2 = QG.QuantizedGraphIndex.open(os.path.join(tmp, "pq4"), device=dev)
+        mine = qg.batch_search(base[sel], size=10, epsilon=0.1)[0]
+        again = qg2.batch_search(base[sel], size=10, epsilon=0.1)[0]
+        same = bool(np.array_equal(again, mine)) and qg2.mode == "pq4"
+        log(f"pq4 route: save + open + search of {len(sel)} rows: {time.time() - t0:.1f} s; "
+            f"identical ids: {same}")
+        if not same:
+            raise AssertionError("pq4 results changed across QuantizedGraphIndex.save/open")
+        qg2.index.close()
+        idx.close()
+    finally:
+        restore()
+
+
+def ivfpq_crossover(path: str, base: np.ndarray, held: np.ndarray, gt: np.ndarray,
+                    sel: np.ndarray, hits8: int, dev, kind: str, tmp: str) -> None:
+    """Phase 17: phase 9's save opened afresh under NGT_TPU_QG_MAX_GB=1,
+    past the qg size ceiling: batch_search builds and serves the auto
+    IVFPQ mirror (recall@10 above IVFPQ_RECALL_FLOOR, ``verify() == []``,
+    save + open identical); 1,000 removals rebuild it and no removed id
+    comes back; then ``optimize_seeds`` and the exact route's self-hits of
+    phase 8's rows (printed)."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.quant.ivfpq import IVFPQIndex
+
+    restore = stage_env(NGT_TPU_QG_MAX_GB=str(IVFPQ_MAX_GB))
+    try:
+        idx = ngt_tpu_torch.open_index(path, device=dev)
+        idx.prop.search_mode = "auto"
+        t0 = time.time()
+        found, _ = idx.batch_search(held, size=10)
+        first = time.time() - t0
+        ivf = idx._ivfpq_mirror
+        if idx._qg is not None or ivf is None:
+            raise AssertionError("batch_search did not take the IVFPQ mirror past the ceiling")
+        tm = ivf.timings
+        log(f"ivfpq crossover: first call of {len(held)} queries (mirror build + search) "
+            f"{first:.2f} s; {len(ivf.centroids)} centroids, raw store {ivf.raw_store}, "
+            f"longest bucket chain {ivf._device()['cent_buckets'].shape[1]}; build (s): "
+            + ", ".join(f"{k} {tm.get(k, 0.0):.3f}" for k in
+                        ("kmeans", "pq_fit", "assign_encode", "host_blocks", "upload")))
+        t0 = time.time()
+        found, _ = idx.batch_search(held, size=10)
+        secs = time.time() - t0
+        rec = BF.recall_at_k(found, gt, 10)
+        log(f"ivfpq crossover: recall@10 {rec:.4f} at nprobe 32, expansion 16, refine; "
+            f"{len(held) / secs:.0f} queries/s ({len(held)} in {secs:.2f} s) on {kind}")
+        if rec < IVFPQ_RECALL_FLOOR:
+            raise AssertionError(f"ivfpq recall@10 {rec:.4f} below {IVFPQ_RECALL_FLOOR}")
+        problems = ivf.verify()
+        t0 = time.time()
+        ivf.save(os.path.join(tmp, "ivf"))
+        ivf2 = IVFPQIndex.open(os.path.join(tmp, "ivf"), device=dev)
+        kw = dict(size=10, nprobe=32, result_expansion=16.0)
+        same = bool(np.array_equal(ivf.batch_search(held[:1000], **kw)[0],
+                                   ivf2.batch_search(held[:1000], **kw)[0]))
+        log(f"ivfpq crossover: verify() {problems}; save + open + search: "
+            f"{time.time() - t0:.1f} s; identical ids: {same}")
+        if problems or not same:
+            raise AssertionError("the IVFPQ mirror failed verify or changed across save/open")
+        del ivf2
+        rng = np.random.default_rng(SEED + 10)
+        gone = rng.choice(np.setdiff1d(np.arange(len(base)), sel), 1000, replace=False)
+        idx.batch_remove(gone)
+        t0 = time.time()
+        again, _ = idx.batch_search(held, size=10)
+        secs = time.time() - t0
+        rebuilt = idx._ivfpq_mirror is not ivf and idx._ivfpq_mirror.live_size == len(base) - 1000
+        leaked = int(np.isin(again, gone).sum())
+        log(f"ivfpq crossover: after batch_remove of 1,000 ids the next call took {secs:.2f} s; "
+            f"mirror rebuilt: {rebuilt}; removed ids served: {leaked}; recall@10 "
+            f"{BF.recall_at_k(again, gt, 10):.4f} against the ground truth before the removals")
+        if not rebuilt or leaked:
+            raise AssertionError("the IVFPQ mirror was not rebuilt or served a removed id")
+        del ivf
+        idx.prop.search_mode = "exact"
+        hits0 = int((idx.batch_search(base[sel], size=10)[0][:, 0] == sel).sum())
+        t0 = time.time()
+        idx.optimize_seeds()
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        hits1 = int((idx.batch_search(base[sel], size=10)[0][:, 0] == sel).sum())
+        log(f"optimize_seeds: {secs:.2f} s, {idx.seeder.num_reps} reps; exact-route self-hits "
+            f"of phase 8's {len(sel)} rows: {hits1} after it, {hits0} before it on this "
+            f"index, {hits8} in phase 8 (printed only)")
+        idx.close()
+    finally:
+        restore()
+
+
+def quant_card_vs_cpu(dev, n: int = 8192, nq: int = 1000) -> None:
+    """Phase 18: at 8,192 rows (the phase 11 generator), the pq4 qg route
+    with codebooks fitted on the card and carried to the CPU port (packed
+    codes byte-equal, ids on >= 99.9% of entries), an IVFPQIndex built on
+    the card and carried to the CPU in the approx, refine and exact modes
+    and with the raw rows in an mmap file (ids on >= 99.9% of entries), and
+    k-means from one host-drawn init on both (MSE within 1%)."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch import convert
+    from ngt_tpu_torch.quant import clustering as TC
+    from ngt_tpu_torch.quant.ivfpq import IVFPQIndex
+    from ngt_tpu_torch.quant.qgraph import QuantizedGraphIndex
+
+    t_all = time.time()
+    x = sift_proxy(n + nq, seed=SEED + 1, kc=64)
+    q = x[n:]
+    restore = stage_env(NGT_TPU_QG_BLOCK_GB="0.001")
+    try:
+        card = ngt_tpu_torch.create(None, dimension=DIM, device=dev, search_mode="qg")
+        card.batch_insert(x[:n], build=True)
+        card.batch_search(q[:8], size=10)
+        cq = card._qg
+        if cq is None or cq.mode != "pq4":
+            raise AssertionError("the card did not quantize to pq4 under the tight budget")
+        cpu = convert.from_ngt_tpu_arrays(device="cpu", **convert.to_numpy_state(card))
+        cpu._qg = QuantizedGraphIndex.encode_pq4(
+            cpu, convert.pq_from_state(cq.pq.state_dict(), device="cpu"))
+        cq.block_edges = cpu._qg.block_edges = 16
+        codes_same = bool(np.array_equal(cq._host_codes()[: n + 1],
+                                         cpu._qg._host_codes()[: n + 1]))
+        gi, gd = card.batch_search(q, size=10, epsilon=0.1)
+        ci, cd = cpu.batch_search(q, size=10, epsilon=0.1)
+        same = gi == ci
+        log(f"card vs CPU, pq4 qg route at {n} rows (codebooks fitted on the card, eb 16): "
+            f"packed codes byte-equal {codes_same}, ids agree on {same.mean():.6f} of entries")
+        if not codes_same or same.mean() < 0.999 or not np.allclose(gd[same], cd[same],
+                                                                       rtol=1e-5):
+            raise AssertionError("card and CPU disagree on the pq4 qg route")
+        card.close()
+    finally:
+        restore()
+    ivf = IVFPQIndex(DIM, n_centroids=64, device=dev)
+    ivf.batch_insert(x[:n])
+    ivf.build()
+    st = convert.ivfpq_state(ivf)
+    tmp = tempfile.mkdtemp(prefix="ngt_tpu_torch_ivf_")
+    try:
+        pairs = [("device", ivf, convert.ivfpq_from_state(device="cpu", **st))]
+        st.update(raw_store="mmap", raw_path=os.path.join(tmp, "card.f32"))
+        card_m = convert.ivfpq_from_state(device=dev, **st)
+        st.update(raw_path=os.path.join(tmp, "cpu.f32"))
+        pairs.append(("mmap", card_m, convert.ivfpq_from_state(device="cpu", **st)))
+        for store, a, b in pairs:
+            for mode in (("approx", "refine", "exact") if store == "device" else ("refine",)):
+                ai, ad = a.batch_search(q, size=10, nprobe=16, mode=mode)
+                bi, bd = b.batch_search(q, size=10, nprobe=16, mode=mode)
+                same = ai == bi
+                log(f"card vs CPU, IVFPQIndex at {n} rows, raw {store}, mode {mode}: ids agree "
+                    f"on {same.mean():.6f} of entries")
+                if same.mean() < 0.999 or not np.allclose(ad[same], bd[same], rtol=1e-5):
+                    raise AssertionError(f"card and CPU disagree on IVFPQ ({store}, {mode})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    init = x[np.sort(np.random.default_rng(SEED + 11).choice(n, 256, replace=False))]
+    mse = []
+    for d in (dev, "cpu"):
+        c, a = TC.kmeans(x[:n], 256, iters=15, init=init, device=d)
+        mse.append(TC.mean_squared_error(x[:n], c, a))
+    log(f"card vs CPU, k-means of {n} rows, k 256, 15 iterations from one host-drawn init: "
+        f"MSE {mse[0]:.4f} on the card, {mse[1]:.4f} on the CPU")
+    if abs(mse[0] - mse[1]) > 0.01 * mse[1]:
+        raise AssertionError("card and CPU k-means MSE differ by more than 1%")
+    log(f"card vs CPU, quantization: {time.time() - t_all:.1f} s")
 
 
 def mutations_card_vs_cpu(dev, n: int = 8192, nq: int = 1000) -> float:
@@ -1034,8 +1323,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mut_s = mutations_card_vs_cpu(dev)
     log(f"live-index checks (phases 14 + 15): {live_s + mut_s:.1f} s")
+    torch.cuda.empty_cache()
+    quant_card_vs_cpu(dev)
 
-    # 16. kernels, device, result
+    # 19. kernels, device, result
     # the last three lines go out bare: the kernels line, the nvidia-smi
     # line and the result line are read by machines
     log(f"total {time.time() - t_start:.1f} s")

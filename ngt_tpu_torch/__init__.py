@@ -16,3 +16,16 @@ from ngt_tpu_torch.properties import (  # noqa: F401
 from ngt_tpu_torch.index import Index, create, open_index  # noqa: F401
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    # lazy, as ngt_tpu/__init__.py has them
+    if name == "IVFPQIndex":
+        from ngt_tpu_torch.quant.ivfpq import IVFPQIndex
+
+        return IVFPQIndex
+    if name == "QuantizedGraphIndex":
+        from ngt_tpu_torch.quant.qgraph import QuantizedGraphIndex
+
+        return QuantizedGraphIndex
+    raise AttributeError(f"module 'ngt_tpu_torch' has no attribute {name!r}")

@@ -14,13 +14,17 @@ covers every metric and object type of the reference; the bulk build of a
 fresh index and of large appends, the incremental ANNG build of smaller
 appends (``build_algorithm``, ``bulk_append_threshold``), removal
 (``remove``, ``batch_remove``), graph inspection (``get_edges``,
-``check_graph``, ``statistics``) and both search routes: the exact-graph
-route, and the quantized-graph route (``quant/qgraph.py``) that
-``batch_search`` takes with default properties at ``search_qg_threshold``
-(5,000) nodes or more for the metrics its sq8 codes serve.  Routes not
-ported yet raise ``NotImplementedError`` naming the ROADMAP item that ports
-them; the reference's ``batch_insert_dedup``, text export and import and
-memory-mapped open are absent (ROADMAP Queue 1, M8).
+``check_graph``, ``statistics``), k-means seeds (``optimize_seeds``) and
+every search route of the reference: the exact-graph route, and for the
+metrics the quantized codes serve, at ``search_qg_threshold`` (5,000)
+nodes or more with default properties, the quantized-graph route
+(``quant/qgraph.py``: sq8 codes, or pq4 codes once the block budget
+``NGT_TPU_QG_BLOCK_GB`` holds fewer than 8 sq8 columns), and past the
+size ceiling ``NGT_TPU_QG_MAX_GB`` an auto-built IVFPQ mirror
+(``quant/ivfpq.py``; ``search_fallback="exact"`` takes the exact route
+instead).  ``expected_accuracy`` raises ``NotImplementedError`` naming the
+ROADMAP item that ports it; the reference's ``batch_insert_dedup``, text
+export and import and memory-mapped open are absent (ROADMAP Queue 1, M8).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import json
 import math
 import os
 import shutil
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -45,8 +50,10 @@ from ngt_tpu_torch.graph.build import (
 from ngt_tpu_torch.graph.search import seeded_search, wrap_hash_bits
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.ops import bruteforce as BF
+from ngt_tpu_torch.quant.ivfpq import IVFPQIndex
 from ngt_tpu_torch.properties import (
     IndexType,
+    ObjectType,
     Property,
     resolve_distance_type,
     resolve_object_type,
@@ -73,6 +80,9 @@ class Index:
         self._qg = None
         #: set by ``_maybe_qg`` when the index outgrew the qg size ceiling
         self._qg_size_blocked = self._qg_size_warned = False
+        #: the IVFPQ mirror past that ceiling (``_maybe_ivfpq``), the store
+        #: key it was built at, and its rows' internal ids
+        self._ivfpq_mirror = self._ivfpq_key = self._ivfpq_ids = None
         if path is not None and os.path.exists(os.path.join(path, "prf")):
             self._load(path)
             return
@@ -186,6 +196,15 @@ class Index:
     def insert_sparse(self, ids) -> int:
         return self.insert(self.make_sparse_object(ids))
 
+    def optimize_seeds(self, num_reps: int = 0) -> None:
+        """Replace the sampled seed representatives with k-means centroids'
+        nearest live rows (``Seeder.finalize_kmeans``); ``num_reps`` 0
+        scales with the index (``default_reps``)."""
+        n = self.store.repository_size
+        live = np.nonzero(self.store._valid[:n] & self.graph._has_node[:n])[0].astype(np.int32)
+        reps = num_reps if num_reps > 0 else default_reps(len(live))
+        self.seeder.finalize_kmeans(live, self.store._x, num_reps=reps)
+
     def _qdtype(self):
         """Query dtype on the host: id sets for a sparse store."""
         return np.int64 if self.store.sparse else np.float32
@@ -262,13 +281,59 @@ class Index:
                     self._qg_size_warned = True
                     logger.warning(
                         "%s mirror skipped: %d-row blocks need %.1f GiB even at "
-                        "the width floor (> NGT_TPU_QG_MAX_GB=%g)",
-                        fmt, cap, floor_bytes / (1 << 30), max_gb,
+                        "the width floor (> NGT_TPU_QG_MAX_GB=%g); auto-routing "
+                        "falls through to %s", fmt, cap, floor_bytes / (1 << 30), max_gb,
+                        "an IVFPQ mirror" if self.prop.search_fallback == "ivfpq"
+                        else "the exact route",
                     )
                 return None
         if self._qg is None:
             self._qg = QuantizedGraphIndex.quantize(self, mode="auto")
         return self._qg
+
+    def _maybe_ivfpq(self):
+        """The IVFPQ mirror past the qg size ceiling (ngt_tpu/index.py:
+        430-503), or None where it does not apply (search_fallback other
+        than "ivfpq", an object type other than float, bfloat16 or uint8,
+        no live rows).  Built from the live rows with min(2^14, max(256,
+        live / 2048)) centroids and rebuilt whenever the store's
+        (mutation_count, repository_size) changes; raw rows stay on the
+        device up to NGT_TPU_AUTO_IVFPQ_RAW_GB (4 GiB), else in an mmap
+        file (``auto_ivfpq_raw.f32`` in the index directory, or the
+        temporary directory)."""
+        if self.prop.search_fallback != "ivfpq":
+            return None
+        if self.store.object_type not in (ObjectType.FLOAT, ObjectType.BFLOAT16,
+                                          ObjectType.UINT8):
+            return None
+        key = (self.store.mutation_count, self.store.repository_size)
+        if self._ivfpq_mirror is not None and self._ivfpq_key == key:
+            return self._ivfpq_mirror
+        n = self.store.repository_size
+        live = np.nonzero(self.store._valid[:n])[0]
+        if len(live) == 0:
+            return None
+        self._ivfpq_mirror = None   # free the stale mirror first
+        raw_gb = float(os.environ.get("NGT_TPU_AUTO_IVFPQ_RAW_GB", "4"))
+        raw_store, raw_path = "device", None
+        if len(live) * self.store.dimension * 4 > raw_gb * (1 << 30):
+            raw_store = "mmap"
+            raw_path = os.path.join(self.path or tempfile.gettempdir(), "auto_ivfpq_raw.f32")
+        n_centroids = int(min(1 << 14, max(256, len(live) // 2048)))
+        logger.warning(
+            "building the auto IVFPQ mirror for %d rows (%d centroids, raw=%s); "
+            "search_fallback='exact' opts out", len(live), n_centroids, raw_store,
+        )
+        ivf = IVFPQIndex(dimension=self.store.dimension, n_centroids=n_centroids,
+                         metric=self.store.metric, raw_store=raw_store,
+                         raw_path=raw_path, device=self.device)
+        step = 1 << 20
+        for s in range(0, len(live), step):
+            ivf.batch_insert(np.asarray(
+                self.store._x[live[s : s + step], : self.store.dimension], np.float32))
+        ivf.build()
+        self._ivfpq_mirror, self._ivfpq_ids, self._ivfpq_key = ivf, live.astype(np.int64), key
+        return ivf
 
     def batch_search(
         self,
@@ -297,12 +362,19 @@ class Index:
                     queries, size=size, epsilon=epsilon,
                     result_expansion=self.prop.result_expansion, ef=ef,
                 )
-            if self._qg_size_blocked and self.prop.search_fallback != "exact":
-                raise NotImplementedError(
-                    "the IVFPQ mirror past the quantized-graph size ceiling is "
-                    "not ported yet (ROADMAP Queue 1, M15); set "
-                    "search_fallback='exact' to serve on the exact route"
-                )
+            ivf = self._maybe_ivfpq() if self._qg_size_blocked else None
+            if ivf is not None:
+                # past the block ceiling: the qg -> IVFPQ crossover
+                nprobe = int(os.environ.get("NGT_TPU_AUTO_IVFPQ_NPROBE", "32"))
+                exp = float(os.environ.get("NGT_TPU_AUTO_IVFPQ_EXP", "16"))
+                q = self.store.prepare_queries_host(
+                    np.asarray(queries, np.float32))[:, : self.store.dimension]
+                rows, dists = ivf.batch_search(q, size=size, nprobe=nprobe,
+                                               result_expansion=exp, mode="refine")
+                n_ids = len(self._ivfpq_ids)
+                ok = (rows >= 0) & (rows < n_ids)
+                ids = np.where(ok, self._ivfpq_ids[np.clip(rows, 0, n_ids - 1)], -1)
+                return self._ext(ids), dists
         mirror = self._ensure_mirror()
         q = self.store.prepare_queries(np.asarray(queries, dtype=self._qdtype()))
         b = q.shape[0]
@@ -565,13 +637,13 @@ class Index:
         if len(rep):
             self.seeder.set_representatives(rep, self.store._x)
         self._mirror = None
-        self._qg = None
+        self._qg = self._ivfpq_mirror = None
         self.path = path
 
     def close(self) -> None:
         """Drop every device array the index holds."""
         self._mirror = None
-        self._qg = None
+        self._qg = self._ivfpq_mirror = None
         self.store.release_device()
 
     @staticmethod

@@ -34,3 +34,11 @@ def topk_lex(d: torch.Tensor, ids: torch.Tensor, k: int):
     """The k smallest entries of the last dim by (d, ids), ascending."""
     pos = torch.topk(lex_key(d, ids), k, dim=-1, largest=False, sorted=True).indices
     return d.gather(-1, pos), ids.gather(-1, pos)
+
+
+def topk_pos(d: torch.Tensor, k: int):
+    """The k smallest entries of the last dim and their int64 positions,
+    ties to the lower position (the order of ``jax.lax.top_k(-d, k)``)."""
+    pos = torch.arange(d.shape[-1], dtype=torch.int32, device=d.device)
+    dd, sel = topk_lex(d, pos.expand_as(d), k)
+    return dd, sel.to(torch.int64)

@@ -1,1 +1,3 @@
-"""Quantization: the quantized-graph search route (``qgraph``)."""
+"""Quantization: k-means (``clustering``), product quantization (``pq``),
+the quantized-graph search route (``qgraph``) and the IVFPQ index
+(``ivfpq``)."""

@@ -6,8 +6,11 @@ top ``seed_size`` as graph-search entry points.
 
 Representatives are a uniform sample of live ids drawn from the same
 ``numpy.random.default_rng(0x5EED)`` stream as the reference, so both
-packages pick the same ids.  ``finalize_kmeans`` waits for the k-means
-slice (ROADMAP Queue 1, M12).
+packages pick the same ids; ``finalize_kmeans`` replaces them with the
+live rows nearest to k-means centroids (``Index.optimize_seeds``).  Its
+k-means draws its init on the host (``quant/clustering.py``), not from the
+reference's ``jax.random`` stream, so the two packages' k-means reps
+differ.
 """
 
 from __future__ import annotations
@@ -18,6 +21,12 @@ import torch
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops.select import topk_lex
 from ngt_tpu_torch.properties import DistanceType
+
+
+def _nearest_row(cents: torch.Tensor, rows: torch.Tensor, metric) -> torch.Tensor:
+    """The row nearest to each centroid under ``metric`` (the first on
+    ties), computed on the device."""
+    return torch.argmin(D.pairwise(metric, cents, rows), dim=1)
 
 
 def default_reps(n_live: int) -> int:
@@ -76,6 +85,41 @@ class Seeder:
         ).to(self.device)
         self._rep_sq = D.sq_norms(self._rep_rows)
         self._rep_ids_dev = torch.from_numpy(self.rep_ids).to(self.device, copy=True)
+
+    def finalize_kmeans(self, live_ids: np.ndarray, x_host: np.ndarray,
+                        num_reps: int = 1024, sample: int = 65536, iters: int = 10):
+        """Replace the sampled representatives with the live rows nearest to
+        k-means centroids of a sample of live rows (locality comparable to
+        the reference's tree leaves, Node.cpp:145-227;
+        ngt_tpu/seeds.py:139-200).  Hamming and the Jaccard metrics keep
+        their sampled reps (no meaningful mean); past 4,096 reps the
+        uniform sample is kept (coverage matters more than placement); k is
+        rounded up to a power of two, at most the sample size; random init
+        (centroids snap to rows anyway)."""
+        from ngt_tpu_torch.quant.clustering import kmeans
+
+        if self.metric in (DistanceType.HAMMING, DistanceType.JACCARD,
+                           DistanceType.SPARSE_JACCARD):
+            return
+        live_ids = np.asarray(live_ids)
+        if len(live_ids) == 0:
+            return
+        if num_reps > 4096:
+            self.refresh(live_ids, x_host, num_reps)
+            return
+        pool = (live_ids if len(live_ids) <= sample
+                else self._rng.choice(live_ids, size=sample, replace=False))
+        k = int(min(num_reps, len(pool)))
+        k = min(1 << max(int(np.ceil(np.log2(max(k, 1)))), 0), len(pool))
+        rows = x_host[pool].astype(np.float32)
+        cents, _ = kmeans(rows, k, iters=iters, mode="random", device=self.device)
+        near = _nearest_row(torch.from_numpy(cents).to(self.device),
+                            torch.from_numpy(rows).to(self.device), self.metric)
+        sel = np.unique(pool[near.cpu().numpy()]).astype(np.int32)
+        bucket = 1 << max(int(np.ceil(np.log2(max(len(sel), 1)))), 4)
+        if len(sel) < bucket:
+            sel = np.concatenate([sel, np.full(bucket - len(sel), sel[0], np.int32)])
+        self.set_representatives(sel, x_host)
 
     def verify(self, live_mask: np.ndarray, x_host: np.ndarray) -> list:
         """Seed-structure invariants (the role of DVPTree::verify,

@@ -85,23 +85,24 @@ def test_unported_routes_raise(data, monkeypatch):
     t.batch_insert(base, build=True)
     ids, _ = t.batch_search(base[:2])       # auto routing -> quantized graph
     assert t._qg is not None and list(ids[:, 0]) == [0, 1]
-    # past the qg size ceiling: the IVFPQ fallback is not ported; the exact
-    # fallback serves as search_mode="exact" does
+    # past the qg size ceiling: the IVFPQ mirror serves (M15, since ported);
+    # the exact fallback serves as search_mode="exact" does
     monkeypatch.setenv("NGT_TPU_QG_MAX_GB", "1e-6")
     t._qg = None
-    with pytest.raises(NotImplementedError, match="M15"):
-        t.batch_search(base[:2])
+    ids, _ = t.batch_search(base[:2])
+    assert t._ivfpq_mirror is not None and list(ids[:, 0]) == [0, 1]
     t.prop.search_fallback = "exact"
     got = t.batch_search(base[:4])
     t.prop.search_mode = "exact"
     want = t.batch_search(base[:4])
     np.testing.assert_array_equal(got[0], want[0])
     monkeypatch.delenv("NGT_TPU_QG_MAX_GB")
-    # a block budget too small for 8 sq8 columns picks pq4 codes
+    # a block budget too small for 8 sq8 columns picks pq4 codes (M12,
+    # since ported)
     monkeypatch.setenv("NGT_TPU_QG_BLOCK_GB", "1e-6")
     t.prop.search_mode = "qg"
-    with pytest.raises(NotImplementedError, match="M12"):
-        t.batch_search(base[:2])
+    t.batch_search(base[:2])
+    assert t._qg.mode == "pq4"
     assert list(t.batch_insert(base[:5])) == [300, 301, 302, 303, 304]   # append
     with pytest.raises(NotImplementedError, match="M14"):
         t.batch_search(base[:2], expected_accuracy=0.9)
