@@ -113,9 +113,37 @@ codes, the IVFPQ mirror), and checks each result:
     file (ids on >= 99.9% of entries), and k-means from one host-drawn
     init on both (MSE within 1%).
 
-Phases 16-18 launch no hand kernel (pq4, k-means and IVFPQ are torch
-code), so the kernels line lists the window-scan kernel's launches by
-path only.  It prints a few dozen short lines as it goes, then one JSON line of the
+19. the 1M angular ONNG, bench.py's protocol (bench.py:403-440), run
+    inside phase 12 on its index before it closes: ``GraphOptimizer(
+    out_edges=10, in_edges=120, tune_parameters=False).execute`` with
+    NGT_TPU_BUILD_PROFILE=1 (materialize, reconstruct, detect, phase2,
+    rows, mirror, seeds, each closed by a synchronize), the peak card memory, the
+    phase-2 rule and window C, each ONNG program's seconds beside a bound
+    from its bytes and operations; graph type ONNG, e_max 136, every degree
+    <= 136, no row below min(10, its degree before the path adjustment),
+    ``verify() == []``; then bench's five settings on the same 8,192
+    queries (ef 0 at epsilon 0 and 0.02, ef 33, ef 48 with
+    result_expansion 5, ef 64 with 6): recall@10 against phase 12's ground
+    truth and queries/s each; the sq8 qg route with blocks of the ONNG's
+    rows; recall@10 at epsilon 0.02 above COSINE_QG_RECALL_FLOOR; save +
+    open_index: identical ids;
+20. card against CPU for the reconstruction at 8,192 rows (the phase 11
+    generator, edge_size_for_creation 40): ``GraphOptimizer(10, 120,
+    tune_parameters=True)`` tuned on 64 extracted queries, on a card
+    index fed from its build's deferred device rows and on a CPU copy,
+    under the default rule (R(1) at this n*e) and under
+    NGT_TPU_ADJUST_DEVICE_MIN=0 (R(8)); then
+    ``reconstruct_graph_with_constraint`` and ``refine_anng`` (epsilon
+    0.02, exact route): adjacency ids, degrees and distances equal after each ONNG
+    step and equal accuracy tables (the CPU copy takes the card's k-means
+    seeds), and exact- and qg-route ids of 400 queries on >= 99.9% of
+    entries at the card's tuned edge size (``refine_anng`` searches, so its rows are
+    held to the same share).
+
+Phases 16-20 launch no hand kernel (pq4, k-means, IVFPQ and the ONNG
+programs are torch code; the ONNG is rebuilt from the ANNG that phase 12's
+build made through the window-scan kernel), so the kernels line lists the
+window-scan kernel's launches by path only.  It prints a few dozen short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
 Any failure raises, so the run exits non-zero and prints no result; so
 does a machine without a CUDA device.  Data is generated from a seed.
@@ -180,9 +208,17 @@ IVFPQ_MAX_GB = 1.0
 #: corpus, in the reference as in the port (tests/pq4_recall_vs_jax.py)
 PQ4_RECALL_FLOOR = 0.593
 IVFPQ_RECALL_FLOOR = 0.9724
-#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM bytes/s
+#: phase 19: bench.py's angular ONNG call (bench.py:403-440) and its five
+#: search settings (ef, result_expansion, epsilon); 0 leaves the property
+ONNG_OUT, ONNG_IN = 10, 120
+ONNG_SETTINGS = ((0, 0.0, 0.0), (0, 0.0, 0.02), (33, 0.0, 0.0), (48, 5.0, 0.0),
+                 (64, 6.0, 0.0))
+#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM
+#: bytes/s, and the float32 rate outside the tensor cores, the yardstick of
+#: the compares, sorts and index arithmetic of the ONNG programs (K10)
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_CUDA_CORE = 67e12
 
 
 _T0 = time.time()
@@ -1124,8 +1160,259 @@ def cosine_arm(dev, kind: str) -> int:
     log(f"cosine arm: exact route recall@10 {BF.recall_at_k(strip_self(found, qi), gt, 10):.4f} "
         f"at epsilon 0.02, {N_GLOVE_Q / secs:.0f} queries/s ({secs:.2f} s, "
         f"{graph_search.steps} steps) on {kind}")
+    onng_arm(idx, queries, qi, gt, dev, kind)
     idx.close()
     return launches
+
+
+def onng_bounds(n: int, w_src: int, pairs: int, e: int, e_max: int, lookups: int) -> dict:
+    """The least time (ms) each ONNG program could take on one H100 for this
+    run's sizes, the larger of its bytes over PEAK_BYTES and its compares and
+    index operations over PEAK_CUDA_CORE, with the bound's name: reconstruct
+    (read the source rows of width w_src, three sorts of the pairs and the
+    distance lookup, write the rows), detect (read the rows, one binary
+    search over e ids and five compares per (u, v, w), write the packed
+    candidates), phase2 (read rows and candidates, a mask pass over [n, e] per
+    rank and one global binary search per lookup, write the kept mask), rows
+    (read rows and mask, write the compacted rows)."""
+    lg = lambda v: max(1, int(np.ceil(np.log2(max(v, 2)))))  # noqa: E731
+    cand = n * e * ((e + 7) // 8)
+    work = {
+        "reconstruct": (n * w_src * 8 + n * e_max * 8 + 8 * n,
+                        3 * pairs * lg(pairs) + 3 * n * w_src * lg(n * w_src)),
+        "detect": (n * e * 8 + cand, n * e * e * (lg(e) + 5)),
+        "phase2": (n * e * 4 + 4 * n + cand + n * e, 5 * n * e * e + lookups * lg(n * e)),
+        "rows": (n * e * 9 + n * e_max * 8 + 4 * n, 3 * n * e),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_CUDA_CORE * 1e3
+        out[name] = (max(tb, to), "bytes" if tb >= to else "operations")
+    return out
+
+
+def onng_arm(idx, queries: np.ndarray, qi: np.ndarray, gt: np.ndarray, dev, kind: str) -> None:
+    """Phase 19: bench.py's angular ONNG sub-arm on phase 12's 1M Cosine
+    index, then its five search settings, the route checks and save/open."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.graph import reconstruct as R
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.ops import window_scan as WS
+    from ngt_tpu_torch.optimizer import GraphOptimizer
+    from ngt_tpu_torch.properties import GraphType
+
+    n = idx.store.repository_size
+    anng = idx.graph
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    WS.window_scan.launches = 0
+    restore = stage_env(NGT_TPU_BUILD_PROFILE="1")
+    t0 = time.time()
+    try:
+        GraphOptimizer(out_edges=ONNG_OUT, in_edges=ONNG_IN, tune_parameters=False).execute(idx)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    secs = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    stages = dict(R.last_profile)
+    lookups = R._adjust_phase2.lookups
+    pre = R.reconstruct_graph(anng, n, ONNG_OUT, ONNG_IN, device=dev)
+    pre_deg = R._rows_dev(pre, n, dev)[2].cpu().numpy()
+    del pre
+    e = int(pre_deg.max())
+    use_dev, c = R._adjust_rule(n, e, None)
+    log(f"onng arm: GraphOptimizer(out {ONNG_OUT}, in {ONNG_IN}, tune_parameters=False) on "
+        f"phase 12's {n - 1}-row index: {secs:.1f} s on {kind}; stages (s): " + ", ".join(
+            f"{label} {sec:.3f}" for label, sec in stages.items()))
+    log(f"onng arm: peak card memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held "
+        f"before); phase-2 rule {'device' if use_dev else 'host'} R({c}), e {e} before the "
+        f"path adjustment; {lookups} detour lookups; window-scan launches during it "
+        f"{WS.window_scan.launches}")
+    deg_src = anng.degree[:n]
+    pairs = int(np.minimum(deg_src, ONNG_OUT).sum() + np.minimum(deg_src, ONNG_IN).sum())
+    bounds = onng_bounds(n, anng.e_max, pairs, e, idx.graph.e_max, lookups)
+    for name, (bound, by) in bounds.items():
+        calls = f"1 call of {e} rank passes" if name == "phase2" else "1 call"
+        log(f"onng arm: K10 {name}: {calls}, {stages[name]:.3f} s, bound {bound:.3f} ms by {by}")
+    slowest = max(bounds, key=lambda name: stages[name])
+    log(f"onng arm: the slowest ONNG program is {slowest} ({stages[slowest]:.3f} s); the "
+        f"programs took {sum(stages[name] for name in bounds):.1f} s together")
+
+    deg = idx.graph.degree[:n]
+    if idx.prop.graph_type != GraphType.ONNG or idx.graph.e_max != 136 or \
+            idx.prop.max_edges != 136:
+        raise AssertionError(f"onng arm: graph type {idx.prop.graph_type}, e_max "
+                             f"{idx.graph.e_max}")
+    low = deg < np.minimum(10, pre_deg)
+    log(f"onng arm: degrees mean {deg[1:].mean():.2f} (before the path adjustment "
+        f"{pre_deg[1:].mean():.2f}, the ANNG {deg_src[1:].mean():.2f}), max {deg.max()}, "
+        f"rows below min(10, their degree before) {int(low.sum())}")
+    if deg.max() > 136 or low.any():
+        raise AssertionError("onng arm: a degree outside [min(10, before), 136]")
+    problems = idx.verify()
+    if problems:
+        raise AssertionError(f"onng arm verify: {problems}")
+
+    idx.prop.search_mode = "auto"
+    for ef, rexp, eps in ONNG_SETTINGS:
+        old = idx.prop.result_expansion
+        if rexp:
+            idx.prop.result_expansion = rexp
+        t0 = time.time()
+        found, _ = idx.batch_search(queries, size=11, epsilon=eps, ef=ef)
+        secs = time.time() - t0
+        idx.prop.result_expansion = old
+        rec = BF.recall_at_k(strip_self(found, qi), gt, 10)
+        log(f"onng arm: ef {ef}, result_expansion {rexp or old}, epsilon {eps}: recall@10 "
+            f"{rec:.4f}, {N_GLOVE_Q / secs:.0f} queries/s ({secs:.2f} s) on {kind}")
+        if (ef, eps) == (0, 0.02):
+            rec_002 = rec
+    qg = idx._qg
+    if qg is None or qg.mode != "sq8":
+        raise AssertionError("onng arm: the search did not take the sq8 qg route")
+    nbr_eb = qg._dev_blocks()[1]
+    eb = nbr_eb.shape[1]
+    same = bool(np.array_equal(nbr_eb[:n].cpu().numpy(), idx.graph.nbr_ids[:n, :eb]))
+    log(f"onng arm: qg route mode {qg.mode}, eb {eb} of {idx.graph.e_max}, refine "
+        f"{qg._resolve_refine(idx.graph.e_max, eb)}, blocks hold the ONNG's rows: {same}")
+    if not same:
+        raise AssertionError("onng arm: the qg blocks do not hold the ONNG's rows")
+    if rec_002 < COSINE_QG_RECALL_FLOOR:
+        raise AssertionError(f"onng arm: recall@10 {rec_002:.4f} at epsilon 0.02 below "
+                             f"{COSINE_QG_RECALL_FLOOR}")
+    tmp = tempfile.mkdtemp(prefix="ngt_tpu_torch_onng_")
+    try:
+        t0 = time.time()
+        idx.save(tmp)
+        re_idx = ngt_tpu_torch.open_index(tmp, device=dev)
+        # the exact route: the qg route's block width follows the capacity,
+        # 2^20 slots here and 1,000,001 once opened (eb 48 and 50)
+        idx.prop.search_mode = re_idx.prop.search_mode = "exact"
+        a = idx.batch_search(queries[:1024], size=11, epsilon=0.02)[0]
+        b = re_idx.batch_search(queries[:1024], size=11, epsilon=0.02)[0]
+        rows = bool(np.array_equal(re_idx.graph.nbr_ids[:n], idx.graph.nbr_ids[:n]))
+        log(f"onng arm: save + open_index in {time.time() - t0:.1f} s: graph type "
+            f"{re_idx.prop.graph_type.name}, e_max {re_idx.graph.e_max}, rows equal {rows}, "
+            f"identical exact-route ids on 1,024 queries: {bool(np.array_equal(a, b))}")
+        if re_idx.prop.graph_type != GraphType.ONNG or not rows or not np.array_equal(a, b):
+            raise AssertionError("onng arm: the reopened ONNG differs")
+        re_idx.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def onng_card_vs_cpu(dev, n: int = 8192, nq: int = 400) -> None:
+    """Phase 20: the ONNG reconstruction on the card and on the CPU port
+    from one bulk graph (the phase 11 generator, edge_size_for_creation 40):
+    GraphOptimizer(10, 120, tune_parameters=True) under R(1) and R(8),
+    reconstruct_graph_with_constraint and refine_anng."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch import convert
+    from ngt_tpu_torch.graph import reconstruct as R
+    from ngt_tpu_torch.optimizer import GraphOptimizer, extract_queries
+
+    t_all = time.time()
+    x = sift_proxy(n + nq, seed=SEED + 1, kc=64)
+    q = x[n:]
+    m = n + 1
+
+    def build():
+        idx = ngt_tpu_torch.create(None, dimension=DIM, edge_size_for_creation=40, device=dev)
+        idx.batch_insert(x[:n], build=True)
+        return idx
+
+    ref = build()
+    state = convert.to_numpy_state(ref)
+    ref.close()
+    pre = convert.from_ngt_tpu_arrays(device="cpu", **state)
+    pre_e = int(R._rows_dev(R.reconstruct_graph(pre.graph, m, ONNG_OUT, ONNG_IN, device="cpu"),
+                            m, torch.device("cpu"))[2].max())
+    # the tuning's queries, drawn once as extract_queries draws them: 64,
+    # not 200, because the CPU's qg searches at epsilon 0.3-1.2 cost
+    # seconds each (with 200 this phase outlasted all the others)
+    q_tune = extract_queries(pre, 64)
+    pre.close()
+
+    def rows_equal(a, b, what: str) -> None:
+        same = [np.array_equal(getattr(a, k)[:m], getattr(b, k)[:m])
+                for k in ("nbr_ids", "degree", "nbr_dist")]
+        log(f"card vs CPU, {what} at {n} rows: ids, degrees, distances equal {same}; "
+            f"degree mean {a.degree[1:m].mean():.2f}")
+        if not all(same):
+            raise AssertionError(f"card and CPU disagree on {what}")
+
+    def searches_agree(card, cpu, what: str, threshold: float = 0.999) -> None:
+        # the tuned search edge size is the fastest one on each device
+        log(f"card vs CPU, {what}: edge_size_for_search {card.prop.edge_size_for_search} on "
+            f"the card, {cpu.prop.edge_size_for_search} on the CPU; both searched at the card's")
+        cpu.prop.edge_size_for_search = card.prop.edge_size_for_search
+        for mode in ("exact", "qg"):
+            card.prop.search_mode = cpu.prop.search_mode = mode
+            gi, gd = card.batch_search(q, size=10, epsilon=0.1)
+            ci, cd = cpu.batch_search(q, size=10, epsilon=0.1)
+            same = gi == ci
+            log(f"card vs CPU, {what}: {mode}-route ids agree on {same.mean():.6f} of entries")
+            if same.mean() < threshold or not np.allclose(gd[same], cd[same], rtol=1e-5):
+                raise AssertionError(f"card and CPU disagree on the {mode} route after {what}")
+        card.prop.search_mode = cpu.prop.search_mode = "auto"
+
+    for rule, env in (("R(1)", {}), ("R(8)", {"NGT_TPU_ADJUST_DEVICE_MIN": "0"})):
+        restore = stage_env(**env)
+        try:
+            card = build()
+            dfr = card.graph._deferred
+            if dfr is None or not np.array_equal(dfr[0][:m].cpu().numpy(), state["nbr_ids"]):
+                raise AssertionError("the card build left no deferred rows equal to the copy's")
+            cpu = convert.from_ngt_tpu_arrays(device="cpu", **state)
+            times = []
+            for idx in (card, cpu):
+                if idx is cpu:
+                    cpu.optimize_seeds = lambda num_reps=0: cpu.seeder.set_representatives(
+                        card.seeder.rep_ids, cpu.store._x)
+                t0 = time.time()
+                GraphOptimizer(out_edges=ONNG_OUT, in_edges=ONNG_IN, tune_parameters=True,
+                               queries=q_tune).execute(idx)
+                times.append(time.time() - t0)
+            use_dev, c = R._adjust_rule(m, pre_e, None)
+            log(f"card vs CPU, GraphOptimizer(10, 120, tune_parameters=True) under {rule} "
+                f"(picked: {'device' if use_dev else 'host'} rule, C {c}, e {pre_e} before "
+                f"the path adjustment): {times[0]:.1f} s on the card, {times[1]:.1f} s on "
+                "the CPU")
+            rows_equal(card.graph, cpu.graph, f"the ONNG under {rule}")
+            tables = (card.prop.accuracy_table, cpu.prop.accuracy_table)
+            log(f"card vs CPU, accuracy table under {rule}: card {tables[0]}; equal "
+                f"{tables[0] == tables[1]}")
+            if tables[0] != tables[1] or not tables[0]:
+                raise AssertionError(f"card and CPU accuracy tables differ under {rule}")
+            searches_agree(card, cpu, f"the ONNG under {rule}")
+            card.close()
+            cpu.close()
+        finally:
+            restore()
+
+    card = convert.from_ngt_tpu_arrays(device=dev, **state)
+    cpu = convert.from_ngt_tpu_arrays(device="cpu", **state)
+    rows_equal(R.reconstruct_graph_with_constraint(card.graph, m, ONNG_OUT, ONNG_IN, device=dev),
+               R.reconstruct_graph_with_constraint(cpu.graph, m, ONNG_OUT, ONNG_IN,
+                                                   device="cpu"),
+               "reconstruct_graph_with_constraint")
+    # refine on the exact route: its 8,192 searches cost the CPU a third of
+    # the qg route's
+    card.prop.search_mode = cpu.prop.search_mode = "exact"
+    t0 = time.time()
+    R.refine_anng(card, epsilon=0.02)
+    t1 = time.time()
+    R.refine_anng(cpu, epsilon=0.02)
+    same = card.graph.nbr_ids[:m] == cpu.graph.nbr_ids[:m]
+    log(f"card vs CPU, refine_anng at {n} rows: {t1 - t0:.1f} s on the card, "
+        f"{time.time() - t1:.1f} s on the CPU; adjacency ids agree on {same.mean():.6f}")
+    if same.mean() < 0.999:
+        raise AssertionError("card and CPU disagree on refine_anng's rows")
+    searches_agree(card, cpu, "refine_anng")
+    card.close()
+    cpu.close()
+    log(f"card vs CPU, ONNG: {time.time() - t_all:.1f} s")
 
 
 #: phase 13's indexes: every metric, and BFLOAT16 objects under L2
@@ -1325,8 +1612,10 @@ def main() -> int:
     log(f"live-index checks (phases 14 + 15): {live_s + mut_s:.1f} s")
     torch.cuda.empty_cache()
     quant_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
+    onng_card_vs_cpu(dev)
 
-    # 19. kernels, device, result
+    # 21. kernels, device, result
     # the last three lines go out bare: the kernels line, the nvidia-smi
     # line and the result line are read by machines
     log(f"total {time.time() - t_start:.1f} s")
@@ -1339,7 +1628,8 @@ def main() -> int:
         "launches_by_path": {"main path: build": launches,
                              "main path: bulk append": append_launches,
                              "u8 arm: build": u8_launches,
-                             "Cosine arm: build": cos_launches},
+                             "Cosine arm: build": cos_launches,
+                             "ONNG arm: build (phase 12's index)": cos_launches},
         "matched": True,
         "max_abs_err": err,
         "ms": ms,

@@ -1,8 +1,9 @@
-// Host graph runtime of ngt_tpu_torch: the three union-find and edge-merge
-// routines of the JAX package's native library (ngt_tpu/native/src/
-// ngt_tpu_native.cpp: merge_edges, connected_components, union_pairs),
-// copied with the same C ABI so both packages give the same graphs and the
-// same component labels.  Built by g++ at first use (ngt_tpu_torch/native.py)
+// Host graph runtime of ngt_tpu_torch: the union-find, edge-merge and
+// constrained reverse-edge routines of the JAX package's native library
+// (ngt_tpu/native/src/ngt_tpu_native.cpp: merge_edges,
+// connected_components, union_pairs, constrained_reverse), copied with the
+// same C ABI so both packages give the same graphs and the same component
+// labels.  Built by g++ at first use (ngt_tpu_torch/native.py)
 // and called through ctypes.
 //
 //  * merge_edges — the serial graph update of a build batch (the analogue
@@ -12,7 +13,9 @@
 //    Graph.h:888-934);
 //  * connected_components — union-find labels (root ids) of the undirected
 //    view of the adjacency;
-//  * union_pairs — merge extra label pairs into a labeling, min-id labels.
+//  * union_pairs — merge extra label pairs into a labeling, min-id labels;
+//  * constrained_reverse — the serial reverse-edge selection of the
+//    indegree-balanced ONNG reconstruction (graph/reconstruct.py).
 
 #include <algorithm>
 #include <cstdint>
@@ -186,6 +189,63 @@ int64_t union_pairs(int32_t *labels, int64_t n, const int32_t *a,
     if (mn[r] == static_cast<int32_t>(i)) ++comps;
   }
   return comps;
+}
+
+// Constrained reverse-edge selection — the serial core of
+// reconstructGraphWithConstraint (reference GraphReconstructor.h:565-715):
+// process reverse lists smallest-first; add reversed edge (rid -> src)
+// unless src already received `in_edges` reversed edges, or rid's row is
+// full (`out_edges`) and src already has at least one.  Emits the selected
+// (rid, src, dist) triples; returns the count (<= total input edges).
+int64_t constrained_reverse(const int32_t *nbr, const float *dist,
+                            const int32_t *deg, int64_t n, int64_t e_w,
+                            int64_t out_edges, int64_t in_edges,
+                            int32_t *out_rid, int32_t *out_src,
+                            float *out_d) {
+  // reverse CSR: rev[t] = list of (src, d) for edges src -> t, src ascending
+  std::vector<int64_t> rcount(n, 0);
+  for (int64_t u = 0; u < n; ++u)
+    for (int64_t j = 0; j < deg[u]; ++j) {
+      const int32_t t = nbr[u * e_w + j];
+      if (t >= 0 && t < n) ++rcount[t];
+    }
+  std::vector<int64_t> rstart(n + 1, 0);
+  for (int64_t t = 0; t < n; ++t) rstart[t + 1] = rstart[t] + rcount[t];
+  std::vector<int32_t> rsrc(rstart[n]);
+  std::vector<float> rd(rstart[n]);
+  std::vector<int64_t> fill(rstart.begin(), rstart.end() - 1);
+  for (int64_t u = 0; u < n; ++u)  // ascending u preserves the reference's
+    for (int64_t j = 0; j < deg[u]; ++j) {  // push order (id-major)
+      const int32_t t = nbr[u * e_w + j];
+      if (t < 0 || t >= n) continue;
+      rsrc[fill[t]] = static_cast<int32_t>(u);
+      rd[fill[t]] = dist[u * e_w + j];
+      ++fill[t];
+    }
+  // rids by increasing reverse-list size (stable: ties by id)
+  std::vector<int32_t> order;
+  order.reserve(n);
+  for (int64_t t = 0; t < n; ++t)
+    if (rcount[t] > 0) order.push_back(static_cast<int32_t>(t));
+  std::stable_sort(order.begin(), order.end(), [&](int32_t a, int32_t b) {
+    return rcount[a] < rcount[b];
+  });
+  std::vector<int32_t> indeg(n, 0), outdeg(n, 0);
+  int64_t m = 0;
+  for (const int32_t rid : order) {
+    for (int64_t p = rstart[rid]; p < rstart[rid] + rcount[rid]; ++p) {
+      const int32_t s = rsrc[p];
+      if (indeg[s] >= in_edges) continue;
+      if (indeg[s] > 0 && outdeg[rid] >= out_edges) continue;
+      out_rid[m] = rid;
+      out_src[m] = s;
+      out_d[m] = rd[p];
+      ++m;
+      ++indeg[s];
+      ++outdeg[rid];
+    }
+  }
+  return m;
 }
 
 }  // extern "C"

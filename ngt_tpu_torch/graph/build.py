@@ -69,14 +69,16 @@ last_profile: list[tuple[str, float]] = []
 class _Marks:
     """``mark(label)`` closes a build phase when NGT_TPU_BUILD_PROFILE=1 (the
     reference's switch): it synchronizes the card, so each phase holds its
-    own device work, and appends the phase's seconds to ``last_profile``.
-    A no-op otherwise."""
+    own device work, and appends the phase's seconds to ``profile``
+    (``last_profile`` unless given), which it empties first.  A no-op
+    otherwise."""
 
-    def __init__(self, dev: torch.device):
+    def __init__(self, dev: torch.device, profile: list | None = None):
         self.on = os.environ.get("NGT_TPU_BUILD_PROFILE", "") == "1"
         self.dev = dev
+        self.profile = last_profile if profile is None else profile
         if self.on:
-            last_profile.clear()
+            self.profile.clear()
             self.t = time.perf_counter()
 
     def __call__(self, label: str) -> None:
@@ -85,7 +87,7 @@ class _Marks:
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
         now = time.perf_counter()
-        last_profile.append((label, now - self.t))
+        self.profile.append((label, now - self.t))
         self.t = now
 
     def report(self) -> None:

@@ -9,7 +9,9 @@ f32 (+inf padded), rows sorted ascending by distance; a full row drops its
 farthest edge (``addEdgeDeletingExcessEdges``, Graph.h:888-934).
 
 A fresh bulk build leaves its adjacency on the device as torch tensors
-(``defer_rows``); the host copy materializes on first host access.  The
+(``defer_rows``), and a graph rewrite hands its result back the same way
+(``from_device_rows``, host arrays not even allocated yet); the host copy
+materializes on first host access.  The
 mutators follow the reference's: ``set_nodes`` replaces rows,
 ``add_edges`` merges edges through the host graph library's
 ``merge_edges`` (``ngt_tpu_torch/native.py``), and ``remove_node`` /
@@ -70,11 +72,27 @@ class GraphStore:
     def degree(self, v: np.ndarray) -> None:
         self._h_deg = v
 
+    @classmethod
+    def from_device_rows(cls, dev_ids, dev_dist, dev_deg, n_used: int, capacity: int,
+                         has_node: np.ndarray) -> "GraphStore":
+        """A store of ``capacity`` rows whose rows [0, n_used) are the given
+        device tensors and whose node set starts with ``has_node``; its host
+        arrays are allocated at the first host access (a graph rewrite's
+        intermediate result never has one)."""
+        g = cls.__new__(cls)
+        g.e_max = int(dev_ids.shape[1])
+        g._h_ids = g._h_dist = g._h_deg = None
+        g._has_node = np.zeros((max(int(capacity), 16),), dtype=bool)
+        g._has_node[: len(has_node)] = has_node
+        g._deferred = None
+        g.defer_rows(dev_ids, dev_dist, dev_deg, n_used)
+        return g
+
     def defer_rows(self, dev_ids, dev_dist, dev_deg, n_used: int) -> None:
         """Adopt device-resident adjacency as the pending source of truth
         for rows [0, n_used); the host copy materializes lazily on first
         host access."""
-        if n_used > self._h_ids.shape[0]:
+        if n_used > self.capacity:
             raise ValueError("defer_rows: host capacity too small")
         self._deferred = (dev_ids, dev_dist, dev_deg, int(n_used))
 
@@ -83,13 +101,20 @@ class GraphStore:
             return
         dev_ids, dev_dist, dev_deg, n = self._deferred
         self._deferred = None
+        if self._h_ids is None:   # a store made by from_device_rows
+            cap = self.capacity
+            self._h_ids = np.empty((cap, self.e_max), dtype=np.int32)
+            self._h_dist = np.empty((cap, self.e_max), dtype=np.float32)
+            self._h_deg = np.zeros((cap,), dtype=np.int32)
+            self._h_ids[n:] = -1
+            self._h_dist[n:] = INF
         self._h_ids[:n] = dev_ids[:n].cpu().numpy()
         self._h_dist[:n] = dev_dist[:n].cpu().numpy()
         self._h_deg[:n] = dev_deg[:n].cpu().numpy()
 
     @property
     def capacity(self) -> int:
-        return self._h_ids.shape[0]
+        return self._has_node.shape[0]
 
     def ensure_capacity(self, n: int) -> bool:
         """Grow to hold node id n-1; returns True if a realloc happened."""

@@ -22,9 +22,11 @@ nodes or more with default properties, the quantized-graph route
 ``NGT_TPU_QG_BLOCK_GB`` holds fewer than 8 sq8 columns), and past the
 size ceiling ``NGT_TPU_QG_MAX_GB`` an auto-built IVFPQ mirror
 (``quant/ivfpq.py``; ``search_fallback="exact"`` takes the exact route
-instead).  ``expected_accuracy`` raises ``NotImplementedError`` naming the
-ROADMAP item that ports it; the reference's ``batch_insert_dedup``, text
-export and import and memory-mapped open are absent (ROADMAP Queue 1, M8).
+instead).  ``ngt_tpu_torch.optimizer.GraphOptimizer`` rebuilds the graph
+as an ONNG (``graph/reconstruct.py``) and tunes it; ``expected_accuracy``
+maps to ε through the accuracy table it stores.  The reference's
+``batch_insert_dedup``, text export and import and memory-mapped open are
+absent (ROADMAP Queue 1, M8).
 """
 
 from __future__ import annotations
@@ -349,11 +351,19 @@ class Index:
         ef: int = 0,
     ):
         """Batched k-NN over the graph. queries: [B, dim].  Returns
-        (ids [B, k] external, dists [B, k]); -1 id = empty slot."""
+        (ids [B, k] external, dists [B, k]); -1 id = empty slot.
+        ``expected_accuracy`` > 0 maps to ε through the accuracy table
+        (Index.h:1156-1158; ngt_tpu/index.py:541-551)."""
         if expected_accuracy > 0:
-            raise NotImplementedError(
-                "expected_accuracy needs the accuracy table (ROADMAP Queue 1, M14)"
-            )
+            from ngt_tpu_torch.optimizer import AccuracyTable
+
+            if not self.prop.accuracy_table:
+                raise ValueError(
+                    "expected_accuracy needs an accuracy table; run "
+                    "ngt_tpu_torch.optimizer.generate_accuracy_table first"
+                )
+            epsilon = AccuracyTable.from_string(
+                self.prop.accuracy_table).get_epsilon(expected_accuracy)
         if (not with_stats and edge_size == -1 and not np.isfinite(radius)
                 and expand == 0 and width == 0):
             qg = self._maybe_qg()
@@ -417,12 +427,13 @@ class Index:
 
     def search(self, query, size: int = 10, epsilon: float = 0.1,
                radius: float = float("inf"), edge_size: int = -1,
-               with_distance: bool = True):
+               expected_accuracy: float = -1.0, with_distance: bool = True):
         """Single-query search returning [(id, dist)] like ngtpy
         (ngtpy.cpp:172-240)."""
         ids, dists = self.batch_search(
             np.asarray(query, dtype=self._qdtype())[None, :], size=size,
             epsilon=epsilon, radius=radius, edge_size=edge_size,
+            expected_accuracy=expected_accuracy,
         )
         out = [
             (int(i), float(d))

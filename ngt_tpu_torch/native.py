@@ -1,5 +1,5 @@
-"""The port's host graph library (the counterpart of the union-find and
-edge-merge half of ``ngt_tpu/native``): ``csrc/host_graph.cpp`` built by
+"""The port's host graph library (the counterpart of the union-find,
+edge-merge and constrained reverse-edge part of ``ngt_tpu/native``): ``csrc/host_graph.cpp`` built by
 ``g++ -O3 -shared -fPIC`` at first use and called through ctypes.
 
 The library lands in ``build/ngt_tpu_torch/<hash of the source and
@@ -78,6 +78,11 @@ def load() -> ctypes.CDLL:
             ]
             lib.union_pairs.restype = ctypes.c_int64
             lib.union_pairs.argtypes = [_I32, ctypes.c_int64, _I32, _I32, ctypes.c_int64]
+            lib.constrained_reverse.restype = ctypes.c_int64
+            lib.constrained_reverse.argtypes = [
+                _I32, _F32, _I32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int64, _I32, _I32, _F32,
+            ]
             _lib = lib
     return _lib
 
@@ -150,3 +155,30 @@ def union_pairs(labels: np.ndarray, a: np.ndarray, b: np.ndarray) -> tuple[np.nd
         np.int64(len(a)),
     )
     return out, int(comps)
+
+
+def constrained_reverse(nbr_ids: np.ndarray, nbr_dist: np.ndarray, degree: np.ndarray,
+                        out_edges: int, in_edges: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The reversed edges (rid -> src, dist) that the indegree-balanced
+    ONNG reconstruction keeps: reverse lists smallest first, at most
+    ``in_edges`` reversed edges per source and ``out_edges`` per row once
+    the source has one (ngt_tpu/native/__init__.py:278-305).  Returns
+    (rid int32, src int32, dist float32)."""
+    n, e_w = nbr_ids.shape
+    if nbr_dist.shape != nbr_ids.shape or len(degree) != n:
+        raise ValueError("constrained_reverse: graph arrays of mismatched shapes")
+    nbr_c = np.ascontiguousarray(nbr_ids, np.int32)
+    dist_c = np.ascontiguousarray(nbr_dist, np.float32)
+    deg_c = np.ascontiguousarray(degree, np.int32)
+    if len(deg_c) and (deg_c.min() < 0 or deg_c.max() > e_w):
+        raise ValueError(f"constrained_reverse: a degree lies outside [0, {e_w}]")
+    cap = max(int(deg_c.sum()), 1)
+    rid = np.empty(cap, np.int32)
+    src = np.empty(cap, np.int32)
+    d = np.empty(cap, np.float32)
+    m = load().constrained_reverse(
+        _ptr(nbr_c, _I32), _ptr(dist_c, _F32), _ptr(deg_c, _I32), np.int64(n),
+        np.int64(e_w), np.int64(out_edges), np.int64(in_edges), _ptr(rid, _I32),
+        _ptr(src, _I32), _ptr(d, _F32),
+    )
+    return rid[:m], src[:m], d[:m]

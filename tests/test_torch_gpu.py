@@ -289,3 +289,38 @@ def test_update_rows_on_the_card_matches_sync_full(cuda, integral):
     torch.testing.assert_close(x, ref.x.to(torch.float32), rtol=0, atol=0)
     assert torch.equal(valid, ref.valid) and torch.equal(nbr, ref.nbr)
     torch.testing.assert_close(sq, ref.sqnorm, rtol=1e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("snap,min_edges", [(1, 0), (8, 10), (40, 3)])
+def test_adjust_paths_on_the_card_matches_cpu(cuda, snap, min_edges):
+    """The ONNG's path adjustment (graph/reconstruct.py): shortcut detection
+    (packed candidate bits) and the rank-ordered phase 2 under R(1), R(8)
+    and one window of 40 ranks, on the card against the same torch code on
+    the CPU; no float arithmetic happens, so bits and kept masks are equal.
+    Detection runs in several row chunks on both."""
+    from ngt_tpu_torch.graph import reconstruct as TR
+
+    rng = np.random.default_rng(4)
+    n, e = 3000, 40
+    x = rng.standard_normal((n, 8)).astype(np.float32)
+    d = np.sqrt(((x[:, None] - x[None]) ** 2).sum(-1)).astype(np.float32)
+    np.fill_diagonal(d, np.inf)
+    ids = np.argsort(d, axis=1, kind="stable")[:, :e].astype(np.int32)
+    dist = np.take_along_axis(d, ids, axis=1)
+    deg = rng.integers(e // 2, e + 1, n).astype(np.int32)
+    ids[np.arange(e)[None, :] >= deg[:, None]] = -1
+    dist[ids < 0] = np.inf
+    out = []
+    old = TR.CHUNK_ELEMS
+    TR.CHUNK_ELEMS = 500 * e * e
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            cand = TR._detect_shortcuts_all(t(ids), t(dist), e=e)
+            kept = TR._adjust_phase2(t(ids), t(deg), cand, e=e, min_edges=min_edges, snap=snap)
+            out.append((cand.cpu().numpy(), kept.cpu().numpy()))
+    finally:
+        TR.CHUNK_ELEMS = old
+    assert out[0][0].any() and not out[0][1].all()
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[0][1], out[1][1])
