@@ -14,7 +14,8 @@ codes, the IVFPQ mirror), and checks each result:
  1. device: the card's name and power limit;
  2. build of the CUDA kernels from ``ngt_tpu_torch/csrc`` (plain nvcc): its
     ptxas registers, spills (any spill fails the run) and warnings, and the
-    scan's shared-memory plan;
+    scan's shared-memory plan; then the host library (g++), so that no
+    later phase times its first-use compile;
  3. the window-scan kernel against its plain torch version at 65,536 x 128
     with 1,024 queries, a ragged case (100 queries, 37 windows) and a
     masked case (scores to rtol 1e-4 / atol 1e-3, ids on >= 99.9% of
@@ -140,10 +141,43 @@ codes, the IVFPQ mirror), and checks each result:
     entries at the card's tuned edge size (``refine_anng`` searches, so its rows are
     held to the same share).
 
+21. the CLI at 1M: phase 10's integer rows (1,000,000 x 128 values in
+    0..255, in float) written as a TSV (seconds and bytes), then
+    ``create -d 128 -D L2 <index> <tsv>`` through ``ngt_tpu_torch.cli.main``
+    in-process (its TSV parse and build seconds, the window-scan launches
+    of its bulk build); the result opened: ``verify() == []`` and the first
+    10 edges of 2,000 sampled rows against exact k-NN (>= 99%); then
+    ``python -m ngt_tpu_torch search -o e -n 10 -Q <N_CLI_Q> <index>
+    <queries.tsv>`` as a subprocess on phase 10's held-out rows (the exact
+    route, since the CLI asks for stats), its stream parsed with the CLI's
+    ``_parse_eval_stream``: ids equal to in-process one-query
+    ``batch_search(..., with_stats=True)`` calls, recall@10 against ground
+    truth above CLI_RECALL_FLOOR, the mean query ms and the command's
+    seconds;
+22. export and import at 1M: ``python -m ngt_tpu_torch export`` of phase
+    21's index to a binary stream and ``import`` into a new directory
+    (seconds and bytes of each; the stream deleted after): objects,
+    validity, free slots, adjacency, degrees, node set and seeds equal,
+    and the imported index's ids on the same queries equal (default and
+    exact routes); then ``open_index(memory_mapped=True)`` of phase 21's
+    directory: exact-route ids equal to the plain open's, and after a
+    removal, an insert into the freed slot and its ``build_index`` every
+    file's sha256 unchanged;
+23. ``batch_insert_dedup`` on the live 1M index (phase 21's, opened on the
+    card): 10,000 rows, 5,000 of them base rows moved by 2.0 (+-1 on four
+    coordinates, radius DEDUP_RADIUS) and 5,000 held-out rows farther than
+    the radius from every stored and every other new row: the copies come
+    back identical with their source ids at distance 2.0, the new rows are
+    inserted through the bulk append (its window-scan launches), the index
+    verifies; the card's ``sqrt`` is correctly rounded (the CPU's root goes
+    through float64 to match it); then at 8,192 rows the card's
+    ``(ids, identical, dist)`` equal the CPU port's.
+
 Phases 16-20 launch no hand kernel (pq4, k-means, IVFPQ and the ONNG
 programs are torch code; the ONNG is rebuilt from the ANNG that phase 12's
 build made through the window-scan kernel), so the kernels line lists the
-window-scan kernel's launches by path only.  It prints a few dozen short lines as it goes, then one JSON line of the
+window-scan kernel's launches by path only; phases 21 and 23 launch it
+through the CLI's bulk build and the dedup's bulk append.  It prints a few dozen short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
 Any failure raises, so the run exits non-zero and prints no result; so
 does a machine without a CUDA device.  Data is generated from a seed.
@@ -152,6 +186,7 @@ does a machine without a CUDA device.  Data is generated from a seed.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -213,6 +248,17 @@ IVFPQ_RECALL_FLOOR = 0.9724
 ONNG_OUT, ONNG_IN = 10, 120
 ONNG_SETTINGS = ((0, 0.0, 0.0), (0, 0.0, 0.02), (33, 0.0, 0.0), (48, 5.0, 0.0),
                  (64, 6.0, 0.0))
+#: phase 21: held-out queries of the CLI's search subprocess (each one is a
+#: separate exact-route call, in the subprocess and again in-process, about
+#: 0.4 s each on the card; 100 brought the whole smoke to 900 s)
+N_CLI_Q = 50
+#: recall@10 floor of those queries against exact ground truth: the lowest
+#: of the measured runs (0.9870 over 100 queries, 0.9960 over these 50; H100
+#: 80GB HBM3 at 700 W; PERF.md) less 1.7 points, as RECALL_FLOOR
+CLI_RECALL_FLOOR = 0.97
+#: phase 23: rows of the dedup batch (copies of base rows, new rows), the
+#: radius, and the rows of its card-against-CPU check
+N_DEDUP_COPY, N_DEDUP_NEW, DEDUP_RADIUS, N_DEDUP_SMALL = 5000, 5000, 8.0, 8192
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM
 #: bytes/s, and the float32 rate outside the tensor cores, the yardstick of
 #: the compares, sorts and index arithmetic of the ONNG programs (K10)
@@ -1000,15 +1046,19 @@ def mutations_card_vs_cpu(dev, n: int = 8192, nq: int = 1000) -> float:
     return secs
 
 
-def u8_arm(allx: np.ndarray, dev, kind: str) -> int:
-    """Phase 10: the proxy scaled and rounded to integers in 0..255, built
-    and searched with default properties: the narrow mirror is u8, the codes
-    ARE that tensor (scale 1.0), recall at the qg floor.  Returns the
-    arm's window-scan launches."""
+def u8_rows(allx: np.ndarray) -> np.ndarray:
+    """The proxy scaled and rounded to integers in 0..255, in float32."""
+    return np.rint(allx * np.float32(255.0 / float(allx.max()))).astype(np.float32)
+
+
+def u8_arm(u: np.ndarray, dev, kind: str) -> int:
+    """Phase 10: the proxy's integer rows (``u8_rows``), built and searched
+    with default properties: the narrow mirror is u8, the codes ARE that
+    tensor (scale 1.0), recall at the qg floor.  Returns the arm's
+    window-scan launches."""
     import ngt_tpu_torch
     from ngt_tpu_torch.ops import window_scan as WS
 
-    u = np.rint(allx * np.float32(255.0 / float(allx.max()))).astype(np.float32)
     base, held = u[:N_BASE], u[N_BASE:]
     WS.window_scan.launches = 0
     t0 = time.time()
@@ -1503,10 +1553,302 @@ def metrics_card_vs_cpu(dev) -> None:
         cpu.close()
 
 
+def write_int_tsv(path: str, rows: np.ndarray, chunk: int = 65536) -> None:
+    """Rows of integers in 0..255 as a TSV file, formatted by table lookup
+    in numpy (np.savetxt takes minutes at 1M x 128)."""
+    table = np.zeros((256, 4), np.uint8)   # up to 3 digits and a separator
+    width = np.zeros(256, np.int64)
+    for v in range(256):
+        digits = str(v).encode()
+        table[v, : len(digits)] = np.frombuffer(digits, np.uint8)
+        width[v] = len(digits)
+    with open(path, "wb") as fh:
+        for s in range(0, len(rows), chunk):
+            vals = rows[s : s + chunk].astype(np.int64)
+            if vals.min() < 0 or vals.max() > 255:
+                raise ValueError("write_int_tsv takes integers in 0..255")
+            tok = table[vals]
+            sep = np.full(vals.shape + (1,), ord("\t"), np.uint8)
+            sep[:, -1] = ord("\n")
+            np.put_along_axis(tok, width[vals][..., None], sep, axis=2)
+            keep = np.arange(4)[None, None, :] <= width[vals][..., None]
+            fh.write(tok[keep].tobytes())
+
+
+def run_cli(argv: list[str]) -> tuple[str, float]:
+    """``python -m ngt_tpu_torch <argv>`` in a subprocess from this
+    checkout; returns its stdout and seconds, raises on a non-zero exit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "ngt_tpu_torch", *argv], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=900)
+    secs = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"ngt_tpu_torch {argv[0]} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout, secs
+
+
+def cli_arm(u: np.ndarray, tmp: str, dev, kind: str) -> tuple[int, str]:
+    """Phase 21: the CLI at 1M (see the module docstring).  Returns the
+    window-scan launches of ``create`` and the index directory."""
+    import contextlib
+    import io
+
+    import ngt_tpu_torch
+    from ngt_tpu_torch import cli
+    from ngt_tpu_torch.ops import window_scan as WS
+
+    base, held = u[:N_BASE], u[N_BASE:]
+    tsv, qtsv, path = (os.path.join(tmp, name) for name in ("base.tsv", "queries.tsv", "index"))
+    t0 = time.time()
+    write_int_tsv(tsv, base)
+    write_int_tsv(qtsv, held)
+    log(f"CLI: TSV of {len(base)} x {DIM} integers written in {time.time() - t0:.1f} s, "
+        f"{os.path.getsize(tsv)} bytes")
+
+    # create, in-process so that the kernel's launch counter can be read
+    WS.window_scan.launches = 0
+    err = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(["create", "-d", str(DIM), "-D", "L2", path, tsv])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = WS.window_scan.launches
+    log(f"CLI: create of {len(base)} rows: {secs:.1f} s on {kind} (exit {rc}); its own "
+        f"lines: {'; '.join(err.getvalue().strip().splitlines())}; window_scan launches "
+        f"{launches}")
+    if rc != 0 or launches == 0:
+        raise AssertionError("the CLI's create failed or never launched the window-scan kernel")
+
+    idx = ngt_tpu_torch.open_index(path, device=dev)
+    problems = idx.verify()
+    if problems:
+        raise AssertionError(f"verify after the CLI's create: {problems}")
+    k = 10
+    qsel = np.random.default_rng(2).choice(len(base), 2000, replace=False)
+    gt_q, _ = idx.batch_linear_search(base[qsel], size=k + 1)
+    rows = idx.graph.nbr_ids[qsel + 1, :k] - 1
+    agree = float(np.mean([len(set(r.tolist()) & set(g[g != s].tolist()[:k])) / k
+                           for r, g, s in zip(rows, gt_q, qsel)]))
+    log(f"CLI: the created index verifies; {agree:.5f} of the first {k} edges of "
+        f"{len(qsel)} rows are exact k-NN edges")
+    if agree < 0.99:
+        raise AssertionError(f"edge agreement {agree:.5f} below 0.99")
+
+    # search, as a user runs it: a subprocess on the card
+    out, secs = run_cli(["search", "-o", "e", "-n", "10", "-Q", str(N_CLI_Q), path, qtsv])
+    stream = cli._parse_eval_stream(out)
+    if list(stream) != [0.1] or sorted(stream[0.1]) != list(range(1, N_CLI_Q + 1)):
+        raise AssertionError("the CLI's evaluation stream lacks queries")
+    got = [stream[0.1][i][0] for i in range(1, N_CLI_Q + 1)]
+    mean_ms = float(np.mean([stream[0.1][i][1] for i in range(1, N_CLI_Q + 1)]))
+    mine = []
+    for q in held[:N_CLI_Q]:
+        ids, dists, _ = idx.batch_search(q[None], size=10, epsilon=0.1, with_stats=True)
+        mine.append([int(i) + 1 for i, d in zip(ids[0], dists[0]) if i >= 0 and np.isfinite(d)])
+    gt = idx.batch_linear_search(held[:N_CLI_Q], size=10)[0]
+    rec = float(np.mean([len(set(g) & {i - 1 for i in f}) / 10 for f, g in zip(got, gt)]))
+    log(f"CLI: search -o e -n 10 -Q {N_CLI_Q} (a subprocess): {secs:.1f} s for the command, "
+        f"mean query {mean_ms:.3f} ms (the exact route), recall@10 {rec:.4f} against exact "
+        f"ground truth; ids equal to in-process batch_search: {got == mine}")
+    if got != mine:
+        raise AssertionError("the CLI's ids differ from the in-process search's")
+    if rec < CLI_RECALL_FLOOR:
+        raise AssertionError(f"the CLI's recall@10 {rec:.4f} below {CLI_RECALL_FLOOR}")
+    idx.close()
+    return launches, path
+
+
+def _digest(path: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        h = hashlib.sha256()
+        with open(os.path.join(path, name), "rb") as fh:
+            for block in iter(lambda: fh.read(1 << 24), b""):
+                h.update(block)
+        out[name] = h.hexdigest()
+    return out
+
+
+def export_import(path: str, queries: np.ndarray, tmp: str, dev, kind: str) -> None:
+    """Phase 22: export and import at 1M, then the memory-mapped open (see
+    the module docstring)."""
+    import ngt_tpu_torch
+
+    stream, copy = os.path.join(tmp, "export.bin"), os.path.join(tmp, "imported")
+    _, ex_s = run_cli(["export", path, stream])
+    size = os.path.getsize(stream)
+    _, im_s = run_cli(["import", copy, stream])
+    os.remove(stream)
+    log(f"CLI: export of the {N_BASE}-row index {ex_s:.1f} s, {size} bytes "
+        f"({size / ex_s / 1e6:.0f} MB/s); import {im_s:.1f} s (subprocesses, interpreter "
+        "start included); the stream deleted")
+    a = ngt_tpu_torch.open_index(path, device=dev)
+    b = ngt_tpu_torch.open_index(copy, device=dev)
+    n = a.store.repository_size
+    pairs = {
+        "objects": (a.store._x[:n], b.store._x[:n]),
+        "valid": (a.store._valid[:n], b.store._valid[:n]),
+        "free": (np.sort(a.store._free), np.sort(b.store._free)),
+        "nbr_ids": (a.graph.nbr_ids[:n], b.graph.nbr_ids[:n]),
+        "nbr_dist": (a.graph.nbr_dist[:n], b.graph.nbr_dist[:n]),
+        "degree": (a.graph.degree[:n], b.graph.degree[:n]),
+        "has_node": (a.graph._has_node[:n], b.graph._has_node[:n]),
+        "rep_ids": (a.seeder.rep_ids, b.seeder.rep_ids),
+    }
+    equal = {k: bool(b.store.repository_size == n and np.array_equal(x, y))
+             for k, (x, y) in pairs.items()}
+    log(f"CLI: the imported index equals the exported one: {equal}")
+    if not all(equal.values()):
+        raise AssertionError(f"export -> import changed the index: {equal}")
+    ids = {}
+    for name, idx in (("exported", a), ("imported", b)):
+        ids[name] = (idx.batch_search(queries, size=10)[0],
+                     idx.batch_search(queries, size=10, with_stats=True)[0])
+    same = [np.array_equal(x, y) for x, y in zip(ids["exported"], ids["imported"])]
+    log(f"CLI: ids of {len(queries)} queries on the imported index equal the exported "
+        f"one's: default route {same[0]}, exact route {same[1]}")
+    if not all(same):
+        raise AssertionError("the imported index answers differently")
+    b.close()
+    shutil.rmtree(copy)
+
+    before = _digest(path)
+    t0 = time.time()
+    mm = ngt_tpu_torch.open_index(path, memory_mapped=True, device=dev)
+    mm_ids = mm.batch_search(queries, size=10, with_stats=True)[0]
+    mapped = isinstance(mm.store._x, np.memmap) and isinstance(mm.graph.nbr_ids, np.memmap)
+    mm.remove(0)
+    slot = mm.insert(queries[0])
+    mm.build_index()
+    found = mm.batch_search(queries[:1], size=1, with_stats=True)[0][0, 0]
+    after = _digest(path)
+    log(f"CLI: memory-mapped open + search + remove + insert + build: "
+        f"{time.time() - t0:.1f} s; mapped {mapped}; exact-route ids equal to the plain "
+        f"open's: {bool(np.array_equal(mm_ids, ids['exported'][1]))}; the insert took "
+        f"freed slot {slot} and is found first: {found == slot}; files unchanged: "
+        f"{after == before}")
+    if not (mapped and np.array_equal(mm_ids, ids["exported"][1]) and slot == 0
+            and found == slot and after == before):
+        raise AssertionError("the memory-mapped open misbehaved")
+    mm.close()
+    a.close()
+
+
+def _dedup_batch(store_idx, base: np.ndarray, fresh: np.ndarray, n_copy: int, n_new: int,
+                 seed: int):
+    """A dedup batch for ``store_idx`` (holding ``base``): ``n_copy`` base
+    rows moved by +-1 on four coordinates (distance 2.0) whose nearest
+    other base row lies farther than 6, and ``n_new`` of ``fresh`` farther
+    than DEDUP_RADIUS + 2 from every stored row and than DEDUP_RADIUS from
+    each other, shuffled.  Returns (batch, source id or -1 per row)."""
+    from ngt_tpu_torch.ops import distances as D
+
+    rng = np.random.default_rng(seed)
+    dev = store_idx.device
+    cand = rng.choice(len(base), min(len(base), 4 * n_copy), replace=False)
+    _, d2 = store_idx.batch_linear_search(base[cand], size=2)
+    src = cand[d2[:, 1] > 6.0][:n_copy]
+    _, dn = store_idx.batch_linear_search(fresh, size=1)
+    far = fresh[dn[:, 0] > DEDUP_RADIUS + 2.0]
+    ft = torch.from_numpy(far).to(dev)
+    close = (D.pairwise(store_idx.store.metric, ft, ft) <= DEDUP_RADIUS).cpu().numpy()
+    keep = np.ones(len(far), bool)
+    for i in range(len(far)):     # greedy: drop a row close to a kept one
+        if keep[i]:
+            keep[i + 1 :] &= ~close[i, i + 1 :]
+    new = far[keep][:n_new]
+    if len(src) < n_copy or len(new) < n_new:
+        raise AssertionError(f"dedup batch: {len(src)} sources, {len(new)} new rows")
+    noise = np.zeros((n_copy, DIM), np.float32)
+    cols = np.argsort(rng.random((n_copy, DIM)), axis=1)[:, :4]
+    np.put_along_axis(noise, cols, rng.choice([-1.0, 1.0], (n_copy, 4)).astype(np.float32), 1)
+    batch = np.concatenate([base[src] + noise, new])
+    source = np.concatenate([src, np.full(n_new, -1)])
+    order = rng.permutation(len(batch))
+    return batch[order], source[order]
+
+
+def dedup_arm(path: str, u: np.ndarray, dev, kind: str) -> int:
+    """Phase 23: ``batch_insert_dedup`` on the live 1M index, then card
+    against CPU at 8,192 rows (see the module docstring).  Returns the
+    window-scan launches of the dedup's bulk append."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.ops import distances as D
+    from ngt_tpu_torch.ops import window_scan as WS
+
+    base, held = u[:N_BASE], u[N_BASE:]
+    idx = ngt_tpu_torch.open_index(path, device=dev)
+    t0 = time.time()
+    batch, source = _dedup_batch(idx, base, held, N_DEDUP_COPY, N_DEDUP_NEW, seed=5)
+    log(f"dedup: batch of {len(batch)} rows chosen in {time.time() - t0:.1f} s")
+    WS.window_scan.launches = 0
+    t0 = time.time()
+    ids, identical, dist = idx.batch_insert_dedup(batch, radius=DEDUP_RADIUS)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = WS.window_scan.launches
+    copy, new = source >= 0, source < 0
+    ok = {
+        "copies identical": bool(identical[copy].all()),
+        "copies' ids are their sources": bool((ids[copy] == source[copy]).all()),
+        "copies at 2.0": bool((dist[copy] == 2.0).all()),
+        "new rows inserted": bool((~identical[new]).all() and (dist[new] == 0).all()),
+        "new ids fresh": bool(len(np.unique(ids[new])) == new.sum()
+                              and (ids[new] >= N_BASE).all()),
+        "size": len(idx) == N_BASE + int(new.sum()),
+    }
+    log(f"dedup of {len(batch)} rows (radius {DEDUP_RADIUS}) on the live {N_BASE}-row index: "
+        f"{secs:.2f} s on {kind}, window_scan launches {launches} (the bulk append of "
+        f"{int(new.sum())} rows); {ok}")
+    problems = idx.verify()
+    if not all(ok.values()) or launches == 0 or problems:
+        raise AssertionError(f"dedup at 1M: {ok}, launches {launches}, verify {problems}")
+    idx.close()
+
+    # the card's sqrt against the correctly rounded one (the CPU port's)
+    v = np.random.default_rng(1).random(1 << 20).astype(np.float32) * 1e4
+    got = D.sqrt(torch.from_numpy(v).to(dev)).cpu().numpy()
+    log(f"dedup: the card's float32 sqrt equals numpy's on {(got == np.sqrt(v)).mean():.6f} "
+        "of 2^20 values")
+    if not np.array_equal(got, np.sqrt(v)):
+        raise AssertionError("the card's sqrt is not correctly rounded")
+
+    # card against CPU at 8,192 rows, 1,000 copies and 1,000 new rows
+    small = base[:N_DEDUP_SMALL]
+    res = {}
+    for where in (dev, torch.device("cpu")):
+        sidx = ngt_tpu_torch.create(None, dimension=DIM, device=where)
+        sidx.batch_insert(small, build=True)
+        if where == dev:
+            sbatch, _ = _dedup_batch(sidx, small, held, 1000, 1000, seed=6)
+            # rows 4.0 from earlier batch rows: chains inside the batch
+            later = sbatch[:50].copy()
+            later[:, :16] += 1.0
+            sbatch = np.concatenate([sbatch, later])
+        t0 = time.time()
+        # build=False: the decision under test does not read the graph, and
+        # the CPU's incremental build of the inserted rows took 35 s
+        res[where.type] = sidx.batch_insert_dedup(sbatch, radius=DEDUP_RADIUS, build=False)
+        res[where.type + " s"] = time.time() - t0
+        sidx.close()
+    same = [np.array_equal(x, y) for x, y in zip(res[dev.type], res["cpu"])]
+    log(f"card vs CPU, dedup of {len(sbatch)} rows into {N_DEDUP_SMALL}: "
+        f"{res[dev.type + ' s']:.2f} s on the card, {res['cpu s']:.2f} s on the CPU; "
+        f"ids, identical, dist equal {same}; {int(res['cpu'][1].sum())} identical")
+    if not all(same):
+        raise AssertionError("card and CPU disagree on batch_insert_dedup")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 1
+    from ngt_tpu_torch import native
     from ngt_tpu_torch.ops import _build
     from ngt_tpu_torch.ops import bruteforce as BF
     from ngt_tpu_torch.ops import distances as D
@@ -1524,11 +1866,15 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}); torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. kernel build
+    # 2. kernel build, and the host library's (g++), so that no phase
+    # below times a first-use compile
     t0 = time.time()
     _build.load()
     log(f"kernel library ready in {time.time() - t0:.1f} s "
         f"(nvcc build {_build.build_info.get('seconds', 0.0):.1f} s)")
+    t0 = time.time()
+    native.load()
+    log(f"host library ready in {time.time() - t0:.1f} s ({native.library_path()})")
     ptxas = _build.build_info.get("ptxas", [])
     for line in ptxas:
         log(f"  ptxas: {line}")
@@ -1596,7 +1942,8 @@ def main() -> int:
 
     launches, append_launches, live_s = drive(base, held, extra, dev, kind, ms)
     torch.cuda.empty_cache()
-    u8_launches = u8_arm(allx, dev, kind)
+    u = u8_rows(allx)
+    u8_launches = u8_arm(u, dev, kind)
     log(f"window_scan launches: {launches} on the main path's build, {append_launches} on "
         f"its bulk append, {u8_launches} in the u8 arm")
     del allx, base, held, extra
@@ -1614,8 +1961,22 @@ def main() -> int:
     quant_card_vs_cpu(dev)
     torch.cuda.empty_cache()
     onng_card_vs_cpu(dev)
+    torch.cuda.empty_cache()
 
-    # 21. kernels, device, result
+    # 21-23. the CLI, export and import, and dedup at 1M
+    tmp = tempfile.mkdtemp(prefix="ngt_tpu_torch_cli_")
+    try:
+        cli_launches, path = cli_arm(u, tmp, dev, kind)
+        torch.cuda.empty_cache()
+        export_import(path, u[N_BASE : N_BASE + N_CLI_Q], tmp, dev, kind)
+        torch.cuda.empty_cache()
+        dedup_launches = dedup_arm(path, u, dev, kind)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"window_scan launches: {cli_launches} in the CLI's create, {dedup_launches} in the "
+        "dedup's bulk append")
+
+    # 24. kernels, device, result
     # the last three lines go out bare: the kernels line, the nvidia-smi
     # line and the result line are read by machines
     log(f"total {time.time() - t_start:.1f} s")
@@ -1624,12 +1985,14 @@ def main() -> int:
         "route": "cuda",
         "source": "ngt_tpu_torch/csrc/window_scan.cu",
         "replaces": "ngt_tpu/ops/pallas_scan.py:88",
-        "launches": launches + append_launches,
+        "launches": launches + append_launches + cli_launches + dedup_launches,
         "launches_by_path": {"main path: build": launches,
                              "main path: bulk append": append_launches,
                              "u8 arm: build": u8_launches,
                              "Cosine arm: build": cos_launches,
-                             "ONNG arm: build (phase 12's index)": cos_launches},
+                             "ONNG arm: build (phase 12's index)": cos_launches,
+                             "CLI: create (phase 21)": cli_launches,
+                             "dedup: bulk append (phase 23)": dedup_launches},
         "matched": True,
         "max_abs_err": err,
         "ms": ms,

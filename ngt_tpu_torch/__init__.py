@@ -2,18 +2,26 @@
 neighbor index and query engine (a proximity-graph index after NGT).
 
 The JAX package ``ngt_tpu`` stays the reference; this package mirrors its
-module names and its on-disk index layout, and runs on a CUDA device (an
-NVIDIA H100) by default or on the CPU when asked (``device="cpu"``).  It
-imports torch and numpy, never JAX.  Its hand-written kernels live in
-``csrc/`` and are built at first use by ``ops/_build.py``.
+module names, its on-disk index layout and its export stream, and runs on a
+CUDA device (an NVIDIA H100) by default or on the CPU when asked
+(``device="cpu"``).  It imports torch and numpy, never JAX.  Its
+hand-written kernels live in ``csrc/`` and are built at first use by
+``ops/_build.py``.  The interfaces: ``python -m ngt_tpu_torch`` (the CLI,
+``cli.py``), ``ngt_tpu_torch.ngtpy`` (a drop-in ``ngtpy``),
+``ngt_tpu_torch.base`` (the ``ngt.base`` surface) and
+``ngt_tpu_torch.annb`` (ann-benchmarks adapters).
 """
 
 from ngt_tpu_torch.properties import (  # noqa: F401
     DistanceType,
     ObjectType,
+    IndexType,
+    GraphType,
+    SeedType,
     Property,
 )
 from ngt_tpu_torch.index import Index, create, open_index  # noqa: F401
+from ngt_tpu_torch.utils import enable_log, disable_log  # noqa: F401
 
 __version__ = "0.1.0"
 

@@ -1,10 +1,11 @@
-// Host graph runtime of ngt_tpu_torch: the union-find, edge-merge and
-// constrained reverse-edge routines of the JAX package's native library
+// Host runtime of ngt_tpu_torch: the union-find, edge-merge, constrained
+// reverse-edge and text codec routines of the JAX package's native library
 // (ngt_tpu/native/src/ngt_tpu_native.cpp: merge_edges,
-// connected_components, union_pairs, constrained_reverse), copied with the
-// same C ABI so both packages give the same graphs and the same component
-// labels.  Built by g++ at first use (ngt_tpu_torch/native.py)
-// and called through ctypes.
+// connected_components, union_pairs, constrained_reverse, tsv_parse,
+// tsv_count_rows and the export stream's formatters and parsers), copied
+// with the same C ABI so both packages give the same graphs, the same
+// component labels and the same export bytes.  Built by g++ at first use
+// (ngt_tpu_torch/native.py) and called through ctypes.
 //
 //  * merge_edges — the serial graph update of a build batch (the analogue
 //    of the reference's coordinator-thread insert, Index.cpp:670-719): bulk
@@ -15,10 +16,17 @@
 //    view of the adjacency;
 //  * union_pairs — merge extra label pairs into a labeling, min-id labels;
 //  * constrained_reverse — the serial reverse-edge selection of the
-//    indegree-balanced ONNG reconstruction (graph/reconstruct.py).
+//    indegree-balanced ONNG reconstruction (graph/reconstruct.py);
+//  * tsv_parse / tsv_count_rows — TSV vector ingestion of the CLI;
+//  * format_obj_rows / format_graph_rows / parse_obj_rows /
+//    parse_graph_rows — the lossless v2 text export stream
+//    (Index.export_index / import_index), with the same %.9g and
+//    integer digit-loop formatting, so both packages write the same bytes.
 
 #include <algorithm>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <thread>
 #include <utility>
 #include <vector>
@@ -246,6 +254,220 @@ int64_t constrained_reverse(const int32_t *nbr, const float *dist,
     }
   }
   return m;
+}
+
+// Parse up to max_rows lines of TSV floats into out[max_rows * dim].
+// Columns beyond `dim` are ignored; lines with fewer than `dim` columns are
+// zero-padded.  Returns rows parsed, or -1 on I/O error.
+long tsv_parse(const char *path, float *out, long max_rows, long dim) {
+  FILE *fh = std::fopen(path, "rb");
+  if (!fh) return -1;
+  long rows = 0;
+  char *line = nullptr;
+  size_t cap = 0;
+  ssize_t len;
+  while (rows < max_rows && (len = getline(&line, &cap, fh)) != -1) {
+    if (len == 0 || line[0] == '\n') continue;
+    char *p = line;
+    float *dst = out + rows * dim;
+    long col = 0;
+    while (col < dim) {
+      char *end = p;
+      float v = strtof(p, &end);
+      if (end == p) break;  // no more numbers on this line
+      dst[col++] = v;
+      p = end;
+      while (*p == '\t' || *p == ' ' || *p == ',') ++p;
+      if (*p == '\n' || *p == '\0') break;
+    }
+    if (col == 0) continue;  // no parseable numbers (e.g. a header line):
+                             // ignore like ObjectRepository::appendText
+                             // rather than inserting a zero vector
+    for (; col < dim; ++col) dst[col] = 0.0f;
+    ++rows;
+  }
+  free(line);
+  std::fclose(fh);
+  return rows;
+}
+
+// Count data rows of a file (for pre-allocation).
+long tsv_count_rows(const char *path) {
+  FILE *fh = std::fopen(path, "rb");
+  if (!fh) return -1;
+  long rows = 0;
+  int c, prev = '\n';
+  bool nonempty = false;
+  while ((c = std::fgetc(fh)) != EOF) {
+    if (c == '\n') {
+      if (nonempty) ++rows;
+      nonempty = false;
+    } else {
+      nonempty = true;
+    }
+    prev = c;
+  }
+  (void)prev;
+  if (nonempty) ++rows;
+  std::fclose(fh);
+  return rows;
+}
+
+// ---- text export/import (the Serializer analogue, Common.h:668-809) ------
+//
+// The lossless v2 text stream (Index::exportIndex twin, Index.h:703-727)
+// spends all its time formatting/parsing floats; Python-level repr()/float()
+// per element is ~100x slower than these single-pass C loops.  %.9g is
+// lossless for binary32 (9 significant digits uniquely identify a float).
+
+// Shortest-exact f32 formatting with an integer fast path (u8/encoded
+// corpora are overwhelmingly small integers; snprintf "%.9g" costs ~430 ns
+// while the digit loop costs ~20 ns).  %.9g is lossless for binary32.
+static inline char *fmt_f32(char *p, float v) {
+  const int64_t iv = static_cast<int64_t>(v);
+  if (v == static_cast<float>(iv) && iv > -16777216 && iv < 16777216) {
+    uint64_t u = iv < 0 ? (*p++ = '-', static_cast<uint64_t>(-iv))
+                        : static_cast<uint64_t>(iv);
+    char tmp[12];
+    int k = 0;
+    do {
+      tmp[k++] = static_cast<char>('0' + u % 10);
+      u /= 10;
+    } while (u);
+    while (k) *p++ = tmp[--k];
+    return p;
+  }
+  return p + snprintf(p, 20, "%.9g", static_cast<double>(v));
+}
+
+// Format `n` object rows: "+v\tv...\n" when valid[i], else "-\n".
+// Returns bytes written, or -1 if `cap` would be exceeded.
+int64_t format_obj_rows(const float *x, const uint8_t *valid, int64_t n,
+                        int64_t d, char *out, int64_t cap) {
+  char *p = out;
+  char *end = out + cap;
+  for (int64_t i = 0; i < n; ++i) {
+    if (end - p < 2 + d * 20) return -1;
+    if (!valid[i]) {
+      *p++ = '-';
+      *p++ = '\n';
+      continue;
+    }
+    *p++ = '+';
+    const float *row = x + i * d;
+    for (int64_t j = 0; j < d; ++j) {
+      if (j) *p++ = '\t';
+      p = fmt_f32(p, row[j]);
+    }
+    *p++ = '\n';
+  }
+  return p - out;
+}
+
+// Format `n` graph rows: "id:dist\tid:dist...\n" for nodes (empty line for
+// degree-0 nodes), "-\n" for non-nodes.  Returns bytes written or -1.
+int64_t format_graph_rows(const int32_t *nbr, const float *dist,
+                          const int32_t *deg, const uint8_t *has, int64_t n,
+                          int64_t e, char *out, int64_t cap) {
+  char *p = out;
+  char *end = out + cap;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t dg = has[i] ? deg[i] : 0;
+    if (end - p < 2 + dg * 34) return -1;
+    if (!has[i]) {
+      *p++ = '-';
+      *p++ = '\n';
+      continue;
+    }
+    const int32_t *ids = nbr + i * e;
+    const float *ds = dist + i * e;
+    for (int64_t j = 0; j < dg; ++j) {
+      if (j) *p++ = '\t';
+      p += snprintf(p, 13, "%d", ids[j]);
+      *p++ = ':';
+      p = fmt_f32(p, ds[j]);
+    }
+    *p++ = '\n';
+  }
+  return p - out;
+}
+
+// Parse `n` object rows from buf back into x[n*d] / valid[n].
+// Accepts both %.9g and Python-repr floats.  Returns bytes consumed or -1.
+int64_t parse_obj_rows(const char *buf, int64_t len, int64_t n, int64_t d,
+                       float *x, uint8_t *valid) {
+  const char *p = buf;
+  const char *end = buf + len;
+  for (int64_t i = 0; i < n; ++i) {
+    if (p >= end) return -1;
+    if (*p == '-') {
+      valid[i] = 0;
+      for (int64_t j = 0; j < d; ++j) x[i * d + j] = 0.0f;
+      while (p < end && *p != '\n') ++p;
+      ++p;
+      continue;
+    }
+    if (*p != '+') return -1;
+    ++p;
+    valid[i] = 1;
+    float *row = x + i * d;
+    for (int64_t j = 0; j < d; ++j) {
+      char *q;
+      row[j] = strtof(p, &q);
+      if (q == p) return -1;
+      p = q;
+      if (*p == '\t') ++p;
+    }
+    while (p < end && *p != '\n') ++p;
+    ++p;
+  }
+  return p - buf;
+}
+
+// Parse `n` graph rows back into fixed-width adjacency.  Returns bytes
+// consumed or -1.
+int64_t parse_graph_rows(const char *buf, int64_t len, int64_t n, int64_t e,
+                         int32_t *nbr, float *dist, int32_t *deg,
+                         uint8_t *has) {
+  const char *p = buf;
+  const char *end = buf + len;
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t *ids = nbr + i * e;
+    float *ds = dist + i * e;
+    for (int64_t j = 0; j < e; ++j) {
+      ids[j] = -1;
+      ds[j] = __builtin_inff();
+    }
+    if (p >= end) return -1;
+    if (*p == '-' && (p + 1 >= end || p[1] == '\n')) {
+      has[i] = 0;
+      deg[i] = 0;
+      while (p < end && *p != '\n') ++p;
+      ++p;
+      continue;
+    }
+    has[i] = 1;
+    int64_t dg = 0;
+    while (p < end && *p != '\n' && dg < e) {
+      char *q;
+      const long id = strtol(p, &q, 10);
+      if (q == p) break;  // empty line: degree-0 node
+      p = q;
+      if (*p != ':') return -1;
+      ++p;
+      const float dd = strtof(p, &q);
+      if (q == p) return -1;
+      p = q;
+      ids[dg] = static_cast<int32_t>(id);
+      ds[dg] = dd;
+      ++dg;
+      if (*p == '\t') ++p;
+    }
+    deg[i] = static_cast<int32_t>(dg);
+    while (p < end && *p != '\n') ++p;
+    ++p;
+  }
+  return p - buf;
 }
 
 }  // extern "C"

@@ -793,7 +793,8 @@ last_batches: list[tuple[int, float, int]] = []
 
 
 def build_anng(store: VectorStore, graph: GraphStore, seeder: Seeder, prop: Property,
-               pending: np.ndarray, mirror: DeviceMirror | None = None) -> DeviceMirror:
+               pending: np.ndarray, mirror: DeviceMirror | None = None,
+               progress=None) -> DeviceMirror:
     """Index every id in ``pending`` (stored objects without graph nodes)
     in batches of ``device_batch_size`` (ngt_tpu/graph/build.py:1250-1533):
 
@@ -808,7 +809,10 @@ def build_anng(store: VectorStore, graph: GraphStore, seeder: Seeder, prop: Prop
       ``truncation_threshold`` dropped and relinked, and the changed rows
       scattered into the mirror; the seeds refresh once the graph doubles;
     * ``build_time_limit`` (minutes) halves the insertion epsilon, down to
-      0.02, while the projected build time exceeds it."""
+      0.02, while the projected build time exceeds it;
+    * ``progress(done, total)``, when given, is called after each batch
+      with the ids indexed so far (the bootstrap batch included) and
+      ``len(pending)`` (ngt_tpu/graph/build.py:1528-1529)."""
     k = int(prop.edge_size_for_creation)
     eps = float(prop.insertion_radius_coefficient) - 1.0
     metric = store.metric
@@ -988,6 +992,8 @@ def build_anng(store: VectorStore, graph: GraphStore, seeder: Seeder, prop: Prop
             next_seed_refresh = 2 * graph.node_count()
             rep_rows, rep_sq, rep_ids_dev = reps()
         last_batches.append((bsz, time.perf_counter() - t_batch, int(steps)))
+        if progress is not None:
+            progress(off + bsz, len(pending))
 
     live = np.nonzero(graph._has_node)[0].astype(np.int32)
     seeder.refresh(live, store._x, num_reps=default_reps(len(live)))

@@ -489,4 +489,4 @@ def refine_anng(index, epsilon: float = 0.1, num_edges: int = 0) -> None:
     graph.nbr_dist[:n] = dist.cpu().numpy()
     graph.degree[:n] = deg.cpu().numpy()
     graph._has_node[:n] = store._valid[:n]
-    index._mirror = None
+    index.replace_graph(graph)

@@ -246,8 +246,19 @@ class GraphStore:
         }
 
     @classmethod
-    def from_state(cls, state: dict) -> "GraphStore":
+    def from_state(cls, state: dict, copy: bool = True) -> "GraphStore":
+        """A store holding ``state`` (``state_dict``'s keys).  ``copy=False``
+        adopts the caller's adjacency arrays as they are, e.g. copy-on-write
+        memmaps that reader processes share; ``ensure_capacity`` moves them
+        into private arrays on growth (ngt_tpu/graph/storage.py:296-316)."""
         n = len(state["degree"])
+        if not copy:
+            g = cls(max_edges=int(state["e_max"]), capacity=16)
+            g.nbr_ids = state["nbr_ids"]
+            g.nbr_dist = state["nbr_dist"]
+            g.degree = np.array(state["degree"])
+            g._has_node = np.array(state["has_node"])
+            return g
         g = cls(max_edges=int(state["e_max"]), capacity=max(n, 16))
         g.nbr_ids[:n] = state["nbr_ids"]
         g.nbr_dist[:n] = state["nbr_dist"]

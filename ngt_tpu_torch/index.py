@@ -24,13 +24,17 @@ size ceiling ``NGT_TPU_QG_MAX_GB`` an auto-built IVFPQ mirror
 (``quant/ivfpq.py``; ``search_fallback="exact"`` takes the exact route
 instead).  ``ngt_tpu_torch.optimizer.GraphOptimizer`` rebuilds the graph
 as an ONNG (``graph/reconstruct.py``) and tunes it; ``expected_accuracy``
-maps to ε through the accuracy table it stores.  The reference's
-``batch_insert_dedup``, text export and import and memory-mapped open are
-absent (ROADMAP Queue 1, M8).
+maps to ε through the accuracy table it stores.  ``batch_insert_dedup`` is
+the reference's range-gated insert; ``export_index`` / ``import_index``
+carry an index through the lossless v2 text stream (formatted and parsed
+by the host library, byte for byte as the JAX package writes it, so an
+export of either package imports into the other), and
+``open_index(memory_mapped=True)`` opens the arrays as copy-on-write maps.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
@@ -49,6 +53,7 @@ from ngt_tpu_torch.graph.build import (
     build_bulk,
     remove_object,
 )
+from ngt_tpu_torch import native
 from ngt_tpu_torch.graph.search import seeded_search, wrap_hash_bits
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.ops import bruteforce as BF
@@ -73,6 +78,7 @@ class Index:
         path: Optional[str] = None,
         prop: Optional[Property] = None,
         zero_based_numbering: bool = True,
+        memory_mapped: bool = False,
         device="cuda",
     ):
         self.path = path
@@ -86,7 +92,7 @@ class Index:
         #: key it was built at, and its rows' internal ids
         self._ivfpq_mirror = self._ivfpq_key = self._ivfpq_ids = None
         if path is not None and os.path.exists(os.path.join(path, "prf")):
-            self._load(path)
+            self._load(path, memory_mapped=memory_mapped)
             return
         if prop is None:
             raise ValueError("need an existing index path or a Property")
@@ -125,6 +131,122 @@ class Index:
         if build:
             self.build_index()
         return self._ext(ids)
+
+    def batch_insert_dedup(self, vs, radius: float, build: bool = True
+                           ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Range-gated deduplicating insert, the reference's
+        ``createIndex(objects, ids, range, threadSize)`` (Index.cpp:1303-1352;
+        ngt_tpu/index.py:101-221): a row whose nearest stored object, or
+        nearest EARLIER batch row that was itself inserted, lies within
+        ``radius`` is not inserted; it reports that object instead.
+
+        Returns ``(ids, identical, dist)`` per input row: the external id
+        (the surviving object's for a deduplicated row), the identical flag
+        and the matched distance (0 for an inserted row).
+
+        The store check is one exact ``batch_linear_search``; the
+        intra-batch check is a pairwise top-m (m = 16) of the earlier rows
+        in 4,096-row blocks, ties to the lower row as ``jax.lax.top_k``
+        orders them; the rows with an earlier neighbor within the radius
+        are then resolved in order, with an exact re-check against every
+        earlier inserted row where all m were within-radius rows that were
+        not inserted."""
+        from ngt_tpu_torch.ops import distances as D
+        from ngt_tpu_torch.ops.select import topk_pos
+
+        vs = np.asarray(vs, dtype=self._qdtype())
+        if vs.ndim == 1:
+            vs = vs[None]
+        prepared = self.store._prepare(vs)
+        b = len(prepared)
+        radius = float(radius)
+        metric = self.store.metric
+
+        # the nearest stored object (one exact scan)
+        store_id = np.full(b, -1, np.int64)
+        store_d = np.full(b, np.inf, np.float32)
+        if len(self.store) > 0:
+            sid, sd = self.batch_linear_search(vs, size=1)
+            store_id = np.asarray(sid)[:, 0].astype(np.int64)
+            store_d = np.asarray(sd)[:, 0].astype(np.float32)
+            store_id[~np.isfinite(store_d)] = -1
+
+        # the top-m EARLIER batch rows of each row (blocked pairwise, j < i)
+        m = int(min(16, max(b - 1, 1)))
+        inb_j = np.full((b, m), -1, np.int64)
+        inb_d = np.full((b, m), np.inf, np.float32)
+        if b > 1:
+            xb = torch.from_numpy(prepared).to(self.device)
+            cols = torch.arange(b, device=self.device)
+            step = 4096
+            for s in range(0, b, step):
+                dd = D.pairwise(metric, xb[s : s + step], xb)
+                rows = torch.arange(s, min(s + step, b), device=self.device)[:, None]
+                dd = torch.where(cols[None, :] < rows, dd, float("inf"))
+                d_top, j_top = topk_pos(dd, m)
+                inb_d[s : s + step] = d_top.cpu().numpy()
+                inb_j[s : s + step] = j_top.cpu().numpy()
+            inb_j[~np.isfinite(inb_d)] = -1
+
+        identical = np.zeros(b, bool)
+        match_store = np.full(b, -1, np.int64)   # external id when matched
+        match_batch = np.full(b, -1, np.int64)   # batch row when matched
+        match_d = np.zeros(b, np.float32)
+        inserted = np.zeros(b, bool)
+        cand = (store_d <= radius) | (inb_d[:, 0] <= radius)
+        inserted[~cand] = True
+        for i in np.nonzero(cand)[0]:
+            best_d = store_d[i] if store_d[i] <= radius else np.inf
+            best_b = -1
+            saturated = True
+            for j, dj in zip(inb_j[i], inb_d[i]):
+                if dj > radius or not np.isfinite(dj):
+                    saturated = False
+                    break
+                if inserted[j]:
+                    # the list is ascending: its first inserted row is the
+                    # nearest inserted one
+                    if dj < best_d:
+                        best_d, best_b = float(dj), int(j)
+                    saturated = False
+                    break
+            if saturated and m < b - 1:
+                # all m were within-radius rows that were not inserted: a
+                # farther inserted row may hide past the window, so check
+                # every earlier inserted row exactly
+                prev = np.nonzero(inserted[:i])[0]
+                if len(prev):
+                    dall = D.pairwise(
+                        metric, torch.from_numpy(prepared[i][None]).to(self.device),
+                        torch.from_numpy(prepared[prev]).to(self.device),
+                    )[0].cpu().numpy()
+                    jj = int(np.argmin(dall))
+                    if dall[jj] <= radius and dall[jj] < best_d:
+                        best_d, best_b = float(dall[jj]), int(prev[jj])
+            if np.isfinite(best_d):
+                identical[i] = True
+                match_d[i] = best_d
+                if best_b >= 0:
+                    match_batch[i] = best_b
+                else:
+                    match_store[i] = store_id[i]
+            else:
+                inserted[i] = True
+
+        new_ids = np.full(b, -1, np.int64)
+        rows = np.nonzero(inserted)[0]
+        if len(rows):
+            ids_int = self.store.batch_insert(vs[rows])
+            new_ids[rows] = np.asarray(self._ext(ids_int))
+            if build:
+                self.build_index()
+        out_ids = new_ids.copy()
+        mb = match_batch >= 0
+        out_ids[mb] = new_ids[match_batch[mb]]
+        ms = match_store >= 0
+        out_ids[ms] = match_store[ms]
+        dist = np.where(inserted, np.float32(0), match_d).astype(np.float32)
+        return out_ids, identical, dist
 
     def build_index(self, num_threads: int = 0) -> None:
         """Create graph nodes for all unindexed objects (Index::createIndex,
@@ -615,13 +737,16 @@ class Index:
             )
         self.path = path
 
-    def _load(self, path: str) -> None:
+    def _load(self, path: str, memory_mapped: bool = False) -> None:
         self.prop = Property.load_dir(path)
+        # copy-on-write maps: reader processes share the page cache, and
+        # this process's writes stay private (ngt_tpu/index.py:907-947)
+        mm = "c" if memory_mapped else None
         if os.path.exists(os.path.join(path, "graph.npz")):   # round-1 layout
             g = dict(np.load(os.path.join(path, "graph.npz")))
         else:
             g = {
-                name: np.load(os.path.join(path, name + ".npy"))
+                name: np.load(os.path.join(path, name + ".npy"), mmap_mode=mm)
                 for name in ("nbr_ids", "nbr_dist", "degree", "has_node",
                              "valid", "free")
             }
@@ -629,7 +754,7 @@ class Index:
                 g["e_max"] = json.load(fh)["e_max"]
         self.store = VectorStore.from_state(
             {
-                "x": np.load(os.path.join(path, "objects.npy")),
+                "x": np.load(os.path.join(path, "objects.npy"), mmap_mode=mm),
                 "valid": g["valid"],
                 "free": g["free"],
                 "dimension": self.prop.dimension,
@@ -637,9 +762,11 @@ class Index:
                 "object_type": int(self.prop.object_type),
             },
             device=self.device,
+            copy=not memory_mapped,
         )
         self.graph = GraphStore.from_state(
-            {k: g[k] for k in ("nbr_ids", "nbr_dist", "degree", "has_node", "e_max")}
+            {k: g[k] for k in ("nbr_ids", "nbr_dist", "degree", "has_node", "e_max")},
+            copy=not memory_mapped,
         )
         self.graph.ensure_capacity(self.store._x.shape[0])
         self.seeder = Seeder(self.prop.distance_type, seed_size=self.prop.seed_size,
@@ -651,6 +778,25 @@ class Index:
         self._qg = self._ivfpq_mirror = None
         self.path = path
 
+    def replace_graph(self, graph: GraphStore) -> None:
+        """Take ``graph`` as the index's adjacency (a rebuilt graph, or the
+        current one rewritten in place) and drop the device adjacency of the
+        old one.  Object rows already on the device are kept under the new
+        adjacency; the quantized-graph mirror is kept too: its codes are the
+        objects', and its neighbor blocks key on the device mirror's
+        version, which a new mirror never repeats."""
+        from ngt_tpu_torch.graph.reconstruct import _rows_dev
+
+        old, self._mirror = self._mirror, None
+        self.graph = graph
+        cap = self.store._x.shape[0]
+        if old is not None and old.x is not None and old.capacity == cap:
+            n = self.store.repository_size
+            nbr = torch.full((cap, graph.e_max), -1, dtype=torch.int32, device=old.x.device)
+            nbr[:n] = _rows_dev(graph, n, old.x.device)[0]
+            self._mirror = DeviceMirror(self.store, graph)
+            self._mirror.adopt(old.x, nbr, old.sqnorm)
+
     def close(self) -> None:
         """Drop every device array the index holds."""
         self._mirror = None
@@ -661,6 +807,115 @@ class Index:
     def destroy(path: str) -> None:
         """Delete an index directory (NGT::Index::destroy, Index.h:496)."""
         shutil.rmtree(path)
+
+    # -------------------------------------------------------- text export ---
+    def export_index(self, fh) -> None:
+        """The lossless v2 text stream: properties, objects, the adjacency
+        and the seed representatives (the reference's exportIndex, Index.h:
+        703-715; ngt_tpu/index.py:959-1028), into a text or a binary stream
+        (prefer binary: a 1M export is gigabytes of text).  The host library
+        formats 65,536 rows at a time."""
+        n = self.store.repository_size
+        dim = self.store.dimension
+        binary = not isinstance(fh, io.TextIOBase)
+        ws = (lambda s: fh.write(s.encode("ascii"))) if binary else fh.write
+        wb = fh.write if binary else (lambda b: fh.write(b.decode("ascii")))
+        ws("# ngt_tpu export v2\n")
+        ws(json.dumps(self.prop.to_prf()) + "\n")
+        ws(f"# objects {n - 1}\n")
+        chunk = 65536
+        for off in range(1, n, chunk):
+            hi = min(off + chunk, n)
+            wb(native.format_obj_rows(self.store._x[off:hi, :dim], self.store._valid[off:hi]))
+        ws(f"# graph {n - 1} {self.graph.e_max}\n")
+        nbr, dist, deg = self.graph.nbr_ids, self.graph.nbr_dist, self.graph.degree
+        for off in range(1, n, chunk):
+            hi = min(off + chunk, n)
+            wb(native.format_graph_rows(nbr[off:hi], dist[off:hi], deg[off:hi],
+                                        self.graph._has_node[off:hi]))
+        ws("# seeds\n")
+        ws(" ".join(str(int(r)) for r in self.seeder.rep_ids) + "\n")
+
+    @classmethod
+    def import_index(cls, fh, path: Optional[str] = None, device="cuda") -> "Index":
+        """An index on ``device`` from an export stream, text or binary
+        (ngt_tpu/index.py:1029-1153): a v2 stream restores the objects
+        (holes freed, so line i stays internal id i + 1), the adjacency and
+        the seeds; a legacy v1 stream holds vectors only and the graph is
+        rebuilt (``_import_v1``).  Saved to ``path`` when given."""
+        binary = isinstance(fh.read(0), bytes)
+        rl = (lambda: fh.readline().decode("ascii")) if binary else fh.readline
+        header = rl()
+        if not header.startswith("# ngt_tpu export"):
+            raise ValueError("not an ngt_tpu export stream")
+        v2 = header.strip().endswith("v2")
+        prop = Property.from_prf(json.loads(rl()))
+        idx = cls(prop=prop, device=device)
+        if not v2:
+            if binary:
+                fh = io.TextIOWrapper(fh, encoding="ascii")
+            return cls._import_v1(idx, fh, path)
+        line = rl()
+        if not line.startswith("# objects"):
+            raise ValueError("malformed export: objects")
+        n_obj = int(line.split()[2])
+        data = fh.read()
+        if not binary:
+            data = data.encode("ascii")
+        xs, vm, off = native.parse_obj_rows(data, n_obj, idx.store.dimension)
+        if vm.any():
+            # occupy every slot so that line i is internal id i + 1, then
+            # free the holes (they have no graph rows)
+            idx.store.batch_insert(xs)
+            for h in np.nonzero(~vm)[0]:
+                idx.store.remove(int(h) + 1)
+        nl = data.index(b"\n", off)
+        gline = data[off:nl].decode("ascii")
+        if not gline.startswith("# graph"):
+            raise ValueError("malformed export: graph")
+        e_max = int(gline.split()[3])
+        nb, dd, dg, hs, gused = native.parse_graph_rows(data[nl + 1 :], n_obj, e_max)
+        g = GraphStore(max_edges=e_max, capacity=max(n_obj + 1, 16))
+        g.nbr_ids[1 : n_obj + 1] = nb
+        g.nbr_dist[1 : n_obj + 1] = dd
+        g.degree[1 : n_obj + 1] = dg
+        g._has_node[1 : n_obj + 1] = hs
+        idx.graph = g
+        idx.graph.ensure_capacity(idx.store._x.shape[0])
+        tail = data[nl + 1 + gused :].decode("ascii").splitlines()
+        if tail and tail[0].startswith("# seeds") and len(tail) > 1:
+            toks = tail[1].split()
+            if toks:
+                idx.seeder.set_representatives(
+                    np.array([int(t) for t in toks], np.int32), idx.store._x)
+        if path:
+            idx.save(path)
+        return idx
+
+    @staticmethod
+    def _import_v1(idx: "Index", fh, path: Optional[str]) -> "Index":
+        """The legacy vectors-only stream (``+v\tv...`` per object, any other
+        line a hole): insert, rebuild the graph, remove the holes
+        (ngt_tpu/index.py:1154-1218)."""
+        vecs, holes = [], []
+        for i, line in enumerate(fh):
+            line = line.rstrip("\n")
+            if line.startswith("+"):
+                vecs.append((i, np.array([float(t) for t in line[1:].split("\t")])))
+            else:
+                holes.append(i)
+        if vecs:
+            mat = np.zeros((len(vecs) + len(holes), len(vecs[0][1])), np.float32)
+            mat[:] = vecs[0][1]
+            for i, v in vecs:
+                mat[i] = v
+            idx.store.batch_insert(mat)
+            idx.build_index()
+            for h in holes:
+                idx.remove(h if idx.zero_based else h + 1)
+        if path:
+            idx.save(path)
+        return idx
 
 
 # ---------------------------------------------------------------- factory ---
@@ -701,8 +956,13 @@ def create(
     return idx
 
 
-def open_index(path: str, zero_based_numbering: bool = True, device="cuda") -> Index:
+def open_index(path: str, zero_based_numbering: bool = True, memory_mapped: bool = False,
+               device="cuda") -> Index:
     """Open an existing index (ngtpy.Index ctor, ngtpy.cpp:58-75) on
-    ``device``."""
-    return Index(path=path, zero_based_numbering=zero_based_numbering, device=device)
+    ``device``.  ``memory_mapped=True`` opens the object and adjacency files
+    as copy-on-write maps: reader processes share one page-cache copy (the
+    reference's shared-memory read, README.md:85), this process's changes
+    stay private, and the device copy uploads the mapped rows as usual."""
+    return Index(path=path, zero_based_numbering=zero_based_numbering,
+                 memory_mapped=memory_mapped, device=device)
 

@@ -1,6 +1,7 @@
-"""The port's host graph library (the counterpart of the union-find,
-edge-merge and constrained reverse-edge part of ``ngt_tpu/native``): ``csrc/host_graph.cpp`` built by
-``g++ -O3 -shared -fPIC`` at first use and called through ctypes.
+"""The port's host library (the counterpart of ``ngt_tpu/native``: the
+union-find, edge merge, constrained reverse edges, TSV ingestion and the
+text export stream's formatters and parsers): ``csrc/host_graph.cpp`` built
+by ``g++ -O3 -shared -fPIC`` at first use and called through ctypes.
 
 The library lands in ``build/ngt_tpu_torch/<hash of the source and
 flags>/`` at the repository root (git-ignored), written under a temporary
@@ -82,6 +83,28 @@ def load() -> ctypes.CDLL:
             lib.constrained_reverse.argtypes = [
                 _I32, _F32, _I32, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_int64, _I32, _I32, _F32,
+            ]
+            lib.tsv_parse.restype = ctypes.c_long
+            lib.tsv_parse.argtypes = [ctypes.c_char_p, _F32, ctypes.c_long, ctypes.c_long]
+            lib.tsv_count_rows.restype = ctypes.c_long
+            lib.tsv_count_rows.argtypes = [ctypes.c_char_p]
+            lib.format_obj_rows.restype = ctypes.c_int64
+            lib.format_obj_rows.argtypes = [
+                _F32, _U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+            ]
+            lib.format_graph_rows.restype = ctypes.c_int64
+            lib.format_graph_rows.argtypes = [
+                _I32, _F32, _I32, _U8, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+                ctypes.c_int64,
+            ]
+            lib.parse_obj_rows.restype = ctypes.c_int64
+            lib.parse_obj_rows.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _F32, _U8,
+            ]
+            lib.parse_graph_rows.restype = ctypes.c_int64
+            lib.parse_graph_rows.argtypes = [
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _I32, _F32,
+                _I32, _U8,
             ]
             _lib = lib
     return _lib
@@ -182,3 +205,106 @@ def constrained_reverse(nbr_ids: np.ndarray, nbr_dist: np.ndarray, degree: np.nd
         _ptr(src, _I32), _ptr(d, _F32),
     )
     return rid[:m], src[:m], d[:m]
+
+
+def parse_tsv(path: str, dimension: int) -> np.ndarray:
+    """Rows of float32 from a TSV file: the first ``dimension`` columns of
+    each line (tabs, spaces or commas), extra columns ignored, short lines
+    zero-padded, lines without a number skipped (the reference's
+    appendText contract, ObjectRepository.h:108-145;
+    ngt_tpu/native/__init__.py:158-181)."""
+    if dimension <= 0:
+        raise ValueError(f"parse_tsv: dimension must be positive, got {dimension}")
+    lib = load()
+    raw = os.fsencode(path)
+    n = lib.tsv_count_rows(raw)
+    if n < 0:
+        raise OSError(f"cannot read {path}")
+    out = np.zeros((n, int(dimension)), np.float32)
+    got = lib.tsv_parse(raw, _ptr(out, _F32), n, int(dimension))
+    if got < 0:
+        raise OSError(f"cannot read {path}")
+    return out[:got]
+
+
+def _check_rows(name: str, n: int, **arrays) -> None:
+    for key, a in arrays.items():
+        if len(a) < n:
+            raise ValueError(f"{name}: {key} has {len(a)} rows, fewer than {n}")
+
+
+def format_obj_rows(x: np.ndarray, valid: np.ndarray) -> bytes:
+    """The export stream's object lines: ``+v\tv...\n`` for a valid row,
+    ``-\n`` for a hole; integral values by a digit loop, the rest as
+    ``%.9g`` (lossless for float32) (ngt_tpu/native/__init__.py:431-454)."""
+    if x.ndim != 2:
+        raise ValueError("format_obj_rows: x must be 2-D")
+    n, d = x.shape
+    _check_rows("format_obj_rows", n, valid=valid)
+    x = np.ascontiguousarray(x, np.float32)
+    v = np.ascontiguousarray(np.asarray(valid[:n], bool).view(np.uint8))
+    cap = int(n * (d * 20 + 3) + 16)
+    buf = np.empty(cap, np.uint8)
+    m = load().format_obj_rows(_ptr(x, _F32), _ptr(v, _U8), np.int64(n), np.int64(d),
+                               ctypes.cast(buf.ctypes.data, ctypes.c_char_p), np.int64(cap))
+    if m < 0:
+        raise RuntimeError("format_obj_rows: output buffer too small")
+    return buf[:m].tobytes()
+
+
+def format_graph_rows(nbr: np.ndarray, dist: np.ndarray, deg: np.ndarray,
+                      has: np.ndarray) -> bytes:
+    """The export stream's graph lines: ``id:dist\t...\n`` for a node (an
+    empty line at degree 0), ``-\n`` for a slot without one
+    (ngt_tpu/native/__init__.py:457-481)."""
+    if nbr.ndim != 2 or dist.shape != nbr.shape:
+        raise ValueError("format_graph_rows: nbr and dist must be 2-D of one shape")
+    n, e = nbr.shape
+    _check_rows("format_graph_rows", n, deg=deg, has=has)
+    nbr = np.ascontiguousarray(nbr, np.int32)
+    dist = np.ascontiguousarray(dist, np.float32)
+    deg = np.ascontiguousarray(deg[:n], np.int32)
+    has = np.ascontiguousarray(np.asarray(has[:n], bool).view(np.uint8))
+    live = deg[has.astype(bool)]
+    if len(live) and (live.min() < 0 or live.max() > e):
+        raise ValueError(f"format_graph_rows: a node's degree lies outside [0, {e}]")
+    cap = int(int(np.minimum(deg, e).sum()) * 34 + n * 3 + 16)
+    buf = np.empty(cap, np.uint8)
+    m = load().format_graph_rows(_ptr(nbr, _I32), _ptr(dist, _F32), _ptr(deg, _I32),
+                                 _ptr(has, _U8), np.int64(n), np.int64(e),
+                                 ctypes.cast(buf.ctypes.data, ctypes.c_char_p), np.int64(cap))
+    if m < 0:
+        raise RuntimeError("format_graph_rows: output buffer too small")
+    return buf[:m].tobytes()
+
+
+def parse_obj_rows(data: bytes, n: int, d: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """Parse ``n`` object lines of an export stream into (x [n, d] float32,
+    valid [n] bool, bytes consumed); ``%.9g`` and Python-repr floats alike
+    (ngt_tpu/native/__init__.py:484-503).  Malformed input raises."""
+    data = bytes(data)
+    x = np.empty((n, d), np.float32)   # the parser writes every slot
+    valid = np.empty((n,), np.uint8)
+    used = load().parse_obj_rows(data, np.int64(len(data)), np.int64(n), np.int64(d),
+                                 _ptr(x, _F32), _ptr(valid, _U8))
+    if used < 0:
+        raise ValueError(f"malformed export: object rows (expected {n} rows of {d} values)")
+    return x, valid.view(bool), int(used)
+
+
+def parse_graph_rows(data: bytes, n: int, e: int
+                     ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """Parse ``n`` graph lines into fixed-width rows (nbr [n, e] -1 padded,
+    dist [n, e] +inf padded, deg, has, bytes consumed)
+    (ngt_tpu/native/__init__.py:506-525).  Malformed input raises."""
+    data = bytes(data)
+    nbr = np.empty((n, e), np.int32)   # the parser writes every slot
+    dist = np.empty((n, e), np.float32)
+    deg = np.empty((n,), np.int32)
+    has = np.empty((n,), np.uint8)
+    used = load().parse_graph_rows(data, np.int64(len(data)), np.int64(n), np.int64(e),
+                                   _ptr(nbr, _I32), _ptr(dist, _F32), _ptr(deg, _I32),
+                                   _ptr(has, _U8))
+    if used < 0:
+        raise ValueError(f"malformed export: graph rows (expected {n} rows)")
+    return nbr, dist, deg, has.view(bool), int(used)

@@ -104,7 +104,7 @@ def fast_knn_l2(queries, x, valid, x_sqnorm, k: int, kc: int = 0,
     dd = torch.where(ci >= 0, (diff * diff).sum(-1), INF)
     sd, si = topk_lex(dd, ci, k)
     return (torch.where(torch.isinf(sd), -1, si).to(torch.int32),
-            torch.sqrt(torch.clamp(sd, min=0.0)))
+            D.sqrt(torch.clamp(sd, min=0.0)))
 
 
 def center_rows(x, valid, x_sqnorm):
@@ -187,7 +187,7 @@ def fast_knn_l2_bulk(q_ids, x, valid, x_sqnorm, *, k: int, kc: int = 0,
         dd = torch.where(ci >= 0, (diff * diff).sum(-1), INF)
         sd, si = topk_lex(dd, ci, k)
         out_i.append(torch.where(torch.isinf(sd), -1, si).to(torch.int32))
-        out_d.append(torch.sqrt(torch.clamp(sd, min=0.0)))
+        out_d.append(D.sqrt(torch.clamp(sd, min=0.0)))
     return torch.cat(out_i), torch.cat(out_d)
 
 

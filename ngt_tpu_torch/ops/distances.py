@@ -40,6 +40,7 @@ Precision: distance contractions stay full fp32.  The JAX package asks for
 ``Precision.HIGHEST`` on every such matmul; the port's form of that rule is
 to keep TF32 off for matmuls and convolutions, set here explicitly because
 the defaults are process-wide and another library may have changed them.
+Square roots are correctly rounded (``sqrt``), as XLA's and CUDA's are.
 """
 
 from __future__ import annotations
@@ -75,6 +76,16 @@ _PAST_IDS = 1 << 40
 #: bytes the sparse-Jaccard lookup holds per (query, row id): the id, its
 #: position, the id found there and the comparison
 SPARSE_PAIR_BYTES = 32
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root.  CUDA's ``sqrt`` is; the
+    CPU's vectorized one is not (torch 2.13 on AVX-512 rounds about 0.7% of
+    float32 inputs one ulp off), so on the CPU the root is taken in float64,
+    whose rounding back to float32 is exact for a square root."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+    return torch.sqrt(x)
 
 
 def _acos_safe(x):
@@ -205,15 +216,15 @@ def pairwise(metric, q: torch.Tensor, x: torch.Tensor,
     if metric == DistanceType.NORMALIZED_ANGLE:
         return _acos_safe(dot)
     if metric == DistanceType.NORMALIZED_L2:
-        return torch.sqrt(torch.clamp(2.0 - 2.0 * dot, min=0.0))
+        return sqrt(torch.clamp(2.0 - 2.0 * dot, min=0.0))
 
     q_sq = (qf * qf).sum(-1)
     x_sq = sq_norms(xf) if x_sqnorm is None else x_sqnorm.to(_F32)
     if metric == DistanceType.L2:
         d2 = q_sq[:, None] + x_sq[None, :] - 2.0 * dot
-        return torch.sqrt(torch.clamp(d2, min=0.0))
+        return sqrt(torch.clamp(d2, min=0.0))
     if metric in ANGULAR_METRICS:
-        denom = torch.sqrt(torch.clamp(q_sq[:, None] * x_sq[None, :], min=1e-30))
+        denom = sqrt(torch.clamp(q_sq[:, None] * x_sq[None, :], min=1e-30))
         cos = dot / denom
         return 1.0 - cos if metric == DistanceType.COSINE else _acos_safe(cos)
     if metric == DistanceType.POINCARE:
@@ -284,7 +295,7 @@ def gathered(metric, q: torch.Tensor, xs: torch.Tensor,
     if metric == DistanceType.L2:
         # the exact elementwise form, immune to the norm-trick cancellation
         diff = qf[:, None, :] - xf
-        return torch.sqrt((diff * diff).sum(-1))
+        return sqrt((diff * diff).sum(-1))
 
     dot = torch.einsum("bd,bed->be", qf, xf)
     if metric == DistanceType.NORMALIZED_COSINE:
@@ -292,14 +303,14 @@ def gathered(metric, q: torch.Tensor, xs: torch.Tensor,
     if metric == DistanceType.NORMALIZED_ANGLE:
         return _acos_safe(dot)
     if metric == DistanceType.NORMALIZED_L2:
-        return torch.sqrt(torch.clamp(2.0 - 2.0 * dot, min=0.0))
+        return sqrt(torch.clamp(2.0 - 2.0 * dot, min=0.0))
     if metric == DistanceType.LORENTZ:
         return _acosh_safe(2.0 * qf[:, 0:1] * xf[:, :, 0] - dot)
 
     q_sq = (qf * qf).sum(-1) if q_sqnorm is None else q_sqnorm.to(_F32)
     x_sq = (xf * xf).sum(-1) if xs_sqnorm is None else xs_sqnorm.to(_F32)
     if metric in ANGULAR_METRICS:
-        denom = torch.sqrt(torch.clamp(q_sq[:, None] * x_sq, min=1e-30))
+        denom = sqrt(torch.clamp(q_sq[:, None] * x_sq, min=1e-30))
         cos = dot / denom
         return 1.0 - cos if metric == DistanceType.COSINE else _acos_safe(cos)
     if metric == DistanceType.POINCARE:
@@ -313,7 +324,7 @@ def normalize_rows(x: torch.Tensor) -> torch.Tensor:
     """L2-normalize rows in f32; a zero row stays zero (the store rejects
     zero vectors on the host, ObjectSpace.h:251-266)."""
     xf = x.to(_F32)
-    n = torch.sqrt((xf * xf).sum(-1, keepdim=True))
+    n = sqrt((xf * xf).sum(-1, keepdim=True))
     return torch.where(n > 0, xf / torch.clamp(n, min=1e-30), 0.0)
 
 

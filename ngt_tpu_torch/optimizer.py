@@ -28,7 +28,6 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from ngt_tpu_torch.ops.bruteforce import recall_at_k
 
@@ -366,7 +365,7 @@ class GraphOptimizer:
         ``graph.reconstruct.last_profile`` (materialize, reconstruct,
         detect, phase2, rows, mirror, seeds)."""
         from ngt_tpu_torch.graph import reconstruct as R
-        from ngt_tpu_torch.graph.build import DeviceMirror, _Marks
+        from ngt_tpu_torch.graph.build import _Marks
         from ngt_tpu_torch.properties import GraphType
 
         dev = index.device
@@ -387,21 +386,11 @@ class GraphOptimizer:
         if self.adjust_paths:
             onng = R.adjust_paths(onng, n, min_edges=self.min_edges_after_adjustment,
                                   device=dev, marks=marks)
-        index.graph = onng
+        index.replace_graph(onng)
         index.prop.graph_type = GraphType.ONNG
         index.prop.outgoing_edge = self.out_edges
         index.prop.incoming_edge = self.in_edges
         index.prop.max_edges = onng.e_max
-        # a fresh mirror: the old one's object rows with the new adjacency,
-        # which is still on the device
-        old, index._mirror = index._mirror, None
-        cap = index.store._x.shape[0]
-        if old is not None and old.x is not None and old.capacity == cap:
-            nbr = torch.full((cap, onng.e_max), -1, dtype=torch.int32, device=dev)
-            nbr[:n] = R._rows_dev(onng, n, dev)[0]
-            index._mirror = DeviceMirror(index.store, onng)
-            index._mirror.adopt(old.x, nbr, old.sqnorm)
-        del old
         marks("mirror")
         index.optimize_seeds()
         marks("seeds")

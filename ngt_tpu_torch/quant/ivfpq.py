@@ -651,7 +651,7 @@ class IVFPQIndex:
                 dev["centroids"], dev["cent_buckets"], dev["bucket_ids"], dev["bucket_vals"],
                 dev["bucket_norm"], dev["scale"], qd, nprobe=nprobe, k=k_exp)
             if not refine:
-                outs.append((ids[:, :size], torch.sqrt(torch.clamp(dists[:, :size], min=0))))
+                outs.append((ids[:, :size], D.sqrt(torch.clamp(dists[:, :size], min=0))))
             else:
                 outs.append(_rerank_rows(qd, self._raw_rows(ids), ids, size=size,
                                          metric=self.metric))

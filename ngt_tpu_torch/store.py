@@ -262,17 +262,27 @@ class VectorStore:
         }
 
     @classmethod
-    def from_state(cls, state: dict, device="cuda") -> "VectorStore":
+    def from_state(cls, state: dict, device="cuda", copy: bool = True) -> "VectorStore":
+        """A store holding ``state`` (``state_dict``'s keys).  ``copy=False``
+        adopts the caller's row array as it is, e.g. a copy-on-write
+        ``np.load(mmap_mode="c")`` view whose pages reader processes share;
+        growth past it moves the rows into a private array
+        (``_ensure_capacity``), and the device copy uploads them as usual
+        (ngt_tpu/store.py:296-318)."""
         n = state["x"].shape[0]
         vs = cls(
             dimension=int(state["dimension"]),
             metric=DistanceType(int(state["metric"])),
             object_type=ObjectType(int(state["object_type"])),
-            capacity=max(n, 16),
+            capacity=max(n, 16) if copy else 16,
             device=device,
         )
-        vs._x[:n] = state["x"]
-        vs._valid[:n] = state["valid"]
+        if copy:
+            vs._x[:n] = state["x"]
+            vs._valid[:n] = state["valid"]
+        else:
+            vs._x = state["x"]
+            vs._valid = np.array(state["valid"])
         vs._size = n
         vs._free = [int(i) for i in state["free"]]
         heapq.heapify(vs._free)

@@ -4,7 +4,9 @@
 The engine logs through the ``ngt_tpu_torch`` logger; ``enable_log`` and
 ``disable_log`` flip its level, the analogue of the reference's
 ``Index::enableLog/disableLog`` (Index.h:493-494).  ``narrow_host`` picks
-the narrowest lossless dtype of an object matrix.
+the narrowest lossless dtype of an object matrix;
+``get_process_vm_rss`` reads the process's resident memory from /proc as
+``Common::getProcessVmRSS`` does (Common.h:279-283).
 """
 
 from __future__ import annotations
@@ -27,6 +29,19 @@ def enable_log() -> None:
 
 def disable_log() -> None:
     logger.setLevel(logging.CRITICAL)
+
+
+def get_process_vm_rss() -> int:
+    """The process's resident memory in KiB (VmRSS of /proc/self/status),
+    0 where the file or the field is missing."""
+    try:
+        with open("/proc/self/status") as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
 
 
 def narrow_host(xh: np.ndarray) -> np.ndarray:

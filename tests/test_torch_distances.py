@@ -276,3 +276,15 @@ def test_fast_knn_l2_matches_jax():
     li, _ = TB.linear_search(torch.from_numpy(q), torch.from_numpy(x),
                              torch.from_numpy(valid), DT.L2, 10)
     np.testing.assert_array_equal(ti.numpy(), li.numpy())
+
+
+def test_sqrt_is_correctly_rounded_as_jax():
+    """``TD.sqrt`` on the CPU equals numpy's and XLA's float32 root bit for
+    bit, including the inputs torch's own CPU root rounds one ulp off
+    (65.406425 = sqrt(4278), where torch gives 65.40642)."""
+    v = np.random.default_rng(0).random(1 << 16).astype(np.float32) * 1e4
+    v[:3] = [4278.0, 0.0, 1e-30]
+    got = TD.sqrt(torch.from_numpy(v)).numpy()
+    np.testing.assert_array_equal(got, np.sqrt(v))
+    np.testing.assert_array_equal(got, np.asarray(jnp.sqrt(jnp.asarray(v))))
+    assert got.dtype == np.float32 and got[0] == np.float32(65.406425)

@@ -324,3 +324,71 @@ def test_adjust_paths_on_the_card_matches_cpu(cuda, snap, min_edges):
     assert out[0][0].any() and not out[0][1].all()
     np.testing.assert_array_equal(out[0][0], out[1][0])
     np.testing.assert_array_equal(out[0][1], out[1][1])
+
+
+def _integral_rows(n: int = 300, d: int = 16, seed: int = 5) -> np.ndarray:
+    """Integer rows (exact distances on either device) with no tie between
+    any row's 10th and 11th neighbour."""
+    x = np.random.default_rng(seed).integers(0, 64, size=(n, d)).astype(np.float32)
+    d2 = ((x[:, None] - x[None]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    kth = np.sort(d2, axis=1)[:, 9:11]
+    assert (kth[:, 0] < kth[:, 1]).all()
+    return x
+
+
+def test_cli_runs_on_the_card_by_default(cuda, tmp_path, monkeypatch, capsys):
+    """Without ``--device`` the CLI's indexes live on the card, and its
+    output equals the CPU's."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch import cli
+
+    x = _integral_rows()
+    tsv, qtsv = str(tmp_path / "d.tsv"), str(tmp_path / "q.tsv")
+    np.savetxt(tsv, x, delimiter="\t", fmt="%.0f")
+    np.savetxt(qtsv, x[:5] + 1, delimiter="\t", fmt="%.0f")
+    devices = []
+    real_open = ngt_tpu_torch.open_index
+
+    def spy(*a, **k):
+        idx = real_open(*a, **k)
+        devices.append(idx.device.type)
+        return idx
+
+    monkeypatch.setattr(ngt_tpu_torch, "open_index", spy)
+    out = {}
+    for where, pre in (("cuda", []), ("cpu", ["--device", "cpu"])):
+        path = str(tmp_path / where)
+        assert cli.main(pre + ["create", "-d", "16", path, tsv]) == 0
+        capsys.readouterr()
+        assert cli.main(pre + ["search", "-o", "e", "-n", "5", path, qtsv]) == 0
+        out[where] = [ln for ln in capsys.readouterr().out.splitlines()
+                      if not ln.startswith(("# Query Time", "# Average Query Time"))]
+    assert devices == ["cuda", "cpu"]
+    assert out["cuda"] == out["cpu"] and "# End of Evaluation" in out["cuda"]
+
+
+def test_export_of_a_card_index_equals_the_cpu_port(cuda):
+    """The same rows built on the card and on the CPU export the same bytes,
+    and the card's stream imports on the CPU into the card's arrays."""
+    import io
+
+    import ngt_tpu_torch
+
+    x = _integral_rows()
+    streams = {}
+    for where in ("cuda", "cpu"):
+        idx = ngt_tpu_torch.create(None, dimension=16, device=where)
+        idx.batch_insert(x, build=True)
+        idx.remove(7)
+        fh = io.BytesIO()
+        idx.export_index(fh)
+        streams[where] = fh.getvalue()
+        if where == "cuda":
+            card = idx
+    assert streams["cuda"] == streams["cpu"]
+    back = ngt_tpu_torch.Index.import_index(io.BytesIO(streams["cuda"]), device="cpu")
+    n = card.store.repository_size
+    np.testing.assert_array_equal(back.graph.nbr_ids[:n], card.graph.nbr_ids[:n])
+    np.testing.assert_array_equal(back.graph.nbr_dist[:n], card.graph.nbr_dist[:n])
+    np.testing.assert_array_equal(back.store._x[:n], card.store._x[:n])

@@ -9,6 +9,7 @@ size picks the same main component and the same bridges.
 
 import numpy as np
 import pytest
+import ref_native_build  # noqa: F401  (builds the reference's library under a lock)
 
 import ngt_tpu
 import ngt_tpu_torch
@@ -39,6 +40,7 @@ def test_merge_edges_matches_reference(n_adds):
     """Duplicate adds, adds already in the row, full rows that drop their
     farthest edge, adds into dead slots, -1 sources; 20,000 adds spread
     over more than 64 rows per thread, so the threaded path runs."""
+    assert JN.available(), "the reference's native library did not load"
     rng = np.random.default_rng(n_adds)
     cap, e_max = 700, 12
     ids, dist, deg, has = _graph(rng, cap, e_max, dead=rng.choice(cap, 40, replace=False))
@@ -71,6 +73,7 @@ def _two_components(rng, half, e_max, dead):
 
 
 def test_connected_components_matches_reference():
+    assert JN.available(), "the reference's native library did not load"
     ids, has = _two_components(np.random.default_rng(3), 150, 8, dead=[0, 7, 50])
     jl, jc = JN.connected_components(ids, has)
     tl, tc = TN.connected_components(ids, has)
@@ -82,6 +85,7 @@ def test_connected_components_matches_reference():
 
 
 def test_union_pairs_matches_reference():
+    assert JN.available(), "the reference's native library did not load"
     rng = np.random.default_rng(4)
     ids, has = _two_components(rng, 100, 8, dead=[3])
     labels, _ = JN.connected_components(ids, has)
@@ -101,6 +105,7 @@ def test_truncated_bulk_build_breaks_a_size_tie_as_reference(monkeypatch):
     with the lower label; with union-find root labels (the reference's) it
     is NOT the one holding node 1, which minimum-id labels would pick, so
     the bridges differ unless the port labels by roots too."""
+    assert JN.available(), "the reference's native library did not load"
     rng = np.random.default_rng(0)
     n, d = 600, 32
     centers = rng.standard_normal((2, d)) * 3.0

@@ -192,6 +192,34 @@ def test_qg_route_after_graph_swap(saved, monkeypatch):
     np.testing.assert_allclose(got[1], np.asarray(want[1]), rtol=1e-5)
 
 
+def test_replace_graph_swaps_device_adjacency(saved, tmp_path):
+    """``Index.replace_graph``, which the CLI, the adapters and the
+    optimizer call after a rebuild: the device mirror keeps its object rows
+    and takes the new adjacency, and a qg mirror made before the swap
+    searches the new graph as an index that opened the new graph does."""
+    from ngt_tpu_torch.graph.reconstruct import reconstruct_anng_from_anng
+
+    t = ngt_tpu_torch.open_index(saved.path, device="cpu")
+    t.prop.search_mode = "qg"
+    t.batch_search(saved.q, size=10, epsilon=0.1)
+    x, qg = t._mirror.x, t._qg
+    n = t.store.repository_size
+    old_nbr = t.graph.nbr_ids[:n].copy()
+    t.replace_graph(reconstruct_anng_from_anng(t.graph, n, 6, device=t.device))
+    assert not np.array_equal(t.graph.nbr_ids[:n, : old_nbr.shape[1]], old_nbr)
+    assert t._mirror.x is x and t._qg is qg
+    np.testing.assert_array_equal(t._mirror.nbr[:n].numpy(), t.graph.nbr_ids[:n])
+    got = t.batch_search(saved.q, size=10, epsilon=0.1)
+    t.save(str(tmp_path / "swapped"))
+    fresh = ngt_tpu_torch.open_index(str(tmp_path / "swapped"), device="cpu")
+    fresh.prop.search_mode = "qg"
+    want = fresh.batch_search(saved.q, size=10, epsilon=0.1)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    nbr_eb = t._qg._dev_blocks()[1]
+    np.testing.assert_array_equal(nbr_eb[:n].numpy(), t.graph.nbr_ids[:n, : nbr_eb.shape[1]])
+
+
 @pytest.mark.parametrize("pairs", [
     [(0.0, 0.5), (0.1, 0.8), (0.3, 0.95)],
     [(0.0, 0.9), (0.2, 0.9)],

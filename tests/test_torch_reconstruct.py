@@ -18,6 +18,7 @@ rewrites, so ids, degrees and distances must be equal (atol 0):
 
 import numpy as np
 import pytest
+import ref_native_build  # noqa: F401  (builds the reference's library under a lock)
 import torch
 
 import ngt_tpu
@@ -102,6 +103,7 @@ def test_constrained_reverse_matches_jax(anng):
     """The host library's serial selection: the same triples in the same
     order; a degree outside the rows is refused."""
     _, nbr, dist, deg, _ = anng
+    assert JN.available(), "the reference's native library did not load"
     for out_e, in_e in ((6, 12), (2, 3)):
         for j, t in zip(JN.constrained_reverse(nbr, dist, deg, out_e, in_e),
                         TN.constrained_reverse(nbr, dist, deg, out_e, in_e)):
@@ -130,6 +132,7 @@ def test_normalize_rows_routes_match_jax(monkeypatch, pairs_min):
     it on the symmetric lookup of the source rows; they differ by an ulp
     where only the reverse pair survived but the source row holds the
     forward edge.  Both packages with the threshold lowered alike."""
+    assert JN.available(), "the reference's native library did not load"
     nbr, dist, deg = _ulp_graph()
     n = len(deg)
     monkeypatch.setattr(JR, "DEV_PAIRS_MIN", pairs_min)
@@ -177,6 +180,8 @@ def test_detect_shortcuts_matches_jax(anng):
     ({"NGT_TPU_ADJUST_DEVICE_MIN": "0", "NGT_TPU_ADJUST_SNAP": "0"}, 3),
 ])
 def test_adjust_paths_matches_jax(anng, monkeypatch, env, min_edges):
+    # the reference's numpy stand-in of edge_dist_lookup differs from its C++
+    assert JN.available(), "the reference's native library did not load"
     _, nbr, dist, deg, n = anng
     for key, val in env.items():
         monkeypatch.setenv(key, val)
