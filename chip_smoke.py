@@ -42,7 +42,8 @@ codes, the IVFPQ mirror), and checks each result:
  9. save + open_index: the self-queries return identical ids;
 10. the u8-exact arm: the proxy scaled and rounded to integers in 0..255,
     built and searched with default properties: the codes are the u8
-    mirror tensor itself at scale 1.0, recall@10 above QG_RECALL_FLOOR;
+    mirror tensor itself at scale 1.0, recall@10 of the first N_U8_Q
+    held-out queries above QG_RECALL_FLOOR;
 11. card against CPU: the qg route at 8,192 rows on the card and on the
     CPU over one graph, in the exact and the lossy visited regime: codes
     equal, ids on >= 99.9% of entries;
@@ -128,7 +129,7 @@ codes, the IVFPQ mirror), and checks each result:
     truth and queries/s each; the sq8 qg route with blocks of the ONNG's
     rows; recall@10 at epsilon 0.02 above COSINE_QG_RECALL_FLOOR; save +
     open_index: identical ids;
-20. card against CPU for the reconstruction at 8,192 rows (the phase 11
+20. card against CPU for the reconstruction at N_ONNG_CHECK rows (the phase 11
     generator, edge_size_for_creation 40): ``GraphOptimizer(10, 120,
     tune_parameters=True)`` tuned on 64 extracted queries, on a card
     index fed from its build's deferred device rows and on a CPU copy,
@@ -171,13 +172,53 @@ codes, the IVFPQ mirror), and checks each result:
     inserted through the bulk append (its window-scan launches), the index
     verifies; the card's ``sqrt`` is correctly rounded (the CPU's root goes
     through float64 to match it); then at 8,192 rows the card's
-    ``(ids, identical, dist)`` equal the CPU port's.
+    ``(ids, identical, dist)`` equal the CPU port's;
+24. sharding at full width, generated fresh after phase 23: sift_proxy
+    (its own seed) at 2,000,000 + 10,000 rows, ``make_mesh(2)`` (two
+    shards of 1,000,000 rows on the one card, one process):
+    ``ShardedIndex.build`` with its defaults (edge_size_for_creation 10,
+    max_edges 48), the window-scan launches of each shard's build;
+    ``batch_search`` of the 10,000 held-out queries at epsilon 0.1,
+    recall@10 against the card's exact search over the 2M rows (floor
+    SHARDED_RECALL_FLOOR); ``ShardedQG.from_sharded_index`` (codes and
+    blocks built on the card, peak card memory) and 1,000 queries
+    (SHARDED_QG_RECALL_FLOOR); ``ShardedIVFPQ`` over a port ``IVFPQIndex``
+    of the same rows (1,024 centroids, dsub 2, ksub 16; nprobe 32,
+    expansion 16): ``memory_report``, shard loads within 2x of the mean,
+    distances exact, recall (SHARDED_IVFPQ_RECALL_FLOOR); then
+    ``save_distributed`` -> ``open_distributed`` under a one-rank NCCL
+    group (``multihost.initialize`` with a FileStore): ids of 2,000
+    queries equal to the in-memory search; seconds by stage;
+25. the sharded programs card against CPU at 8,192 rows, P = 2 (the phase
+    11 generator): ``ShardedIndex.build`` rows equal, adjacency and
+    ``batch_search`` ids >= 99.9%; ``ShardedQG`` from one set of host
+    arrays: scale, codes and blocks byte-equal, ids >= 99.9%;
+    ``ShardedIVFPQ`` of one CPU-built ``IVFPQIndex`` (carried to the card
+    by convert.py): ids >= 99.9%; 4 ``make_sharded_build_step`` steps of
+    256 rows into free slots (laid out by ``shard_host_index`` with spare
+    ``valid=False`` rows, over one exact per-shard KNNG): new neighbor ids,
+    ``nbr``, ``nbr_dist`` (1e-5) >= 99.9% and ``valid`` equal;
+26. the C ABI on the card: ``native.build_capi()``, then a C program this
+    file owns (SMOKE_C, compiled with g++ against the library and
+    libpython) run with the default device (cuda): every entry point of
+    NGT's C API at the sizes of the JAX package's C test, then
+    ``ngt_open_index`` of phase 21's 1M index and N_CAPI_Q
+    ``ngt_search_index_as_float`` calls, whose ids must equal in-process
+    ``Index.search`` on the same opened index;
+27. each ``samples/torch`` script's ``main`` in-process on the card at
+    SAMPLE_ARGS' sizes (their own checks: self-matches, the radius bound,
+    recall@10 above 0.9, ``verify``), with their seconds.
+
+To stay under 1,000 s beside phases 24-27 the smoke runs two earlier
+paths at a smaller depth: the u8 arm's qg recall over N_U8_Q held-out
+queries and phase 20 at N_ONNG_CHECK rows.
 
 Phases 16-20 launch no hand kernel (pq4, k-means, IVFPQ and the ONNG
 programs are torch code; the ONNG is rebuilt from the ANNG that phase 12's
 build made through the window-scan kernel), so the kernels line lists the
 window-scan kernel's launches by path only; phases 21 and 23 launch it
-through the CLI's bulk build and the dedup's bulk append.  It prints a few dozen short lines as it goes, then one JSON line of the
+through the CLI's bulk build and the dedup's bulk append, phase 24 through
+each shard's build.  It prints a few dozen short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
 Any failure raises, so the run exits non-zero and prints no result; so
 does a machine without a CUDA device.  Data is generated from a seed.
@@ -259,6 +300,33 @@ CLI_RECALL_FLOOR = 0.97
 #: phase 23: rows of the dedup batch (copies of base rows, new rows), the
 #: radius, and the rows of its card-against-CPU check
 N_DEDUP_COPY, N_DEDUP_NEW, DEDUP_RADIUS, N_DEDUP_SMALL = 5000, 5000, 8.0, 8192
+#: depth cuts that keep the whole smoke under 1,000 s beside phases 24-27:
+#: the u8 arm's qg recall runs over the first N_U8_Q of the 10,000 held-out
+#: queries and phase 20 compares the card with the CPU at N_ONNG_CHECK rows
+#: (not the 8,192 of the other card-against-CPU phases)
+N_U8_Q, N_ONNG_CHECK = 2000, 4096
+#: phase 24: rows of the two 1M-row shards (sift_proxy, a seed of its own),
+#: queries of the sharded qg search and of the reopened index, the sharded
+#: IVFPQ's centroids, nprobe and expansion
+N_SHARD, SHARD_SEED, N_SHARD_QG_Q, N_SHARD_REOPEN_Q = 2_000_000, SEED + 2, 1000, 2000
+SHARD_IVF_CENTROIDS, SHARD_IVF_NPROBE, SHARD_IVF_EXP = 1024, 32, 16.0
+#: recall@10 floors of phase 24 (batch_search at epsilon 0.1, ShardedQG at
+#: epsilon 0.1, ShardedIVFPQ): the first H100 runs' 0.9914, 0.9919 and
+#: 0.9937-0.9941 (NVIDIA H100 80GB HBM3 at 700 W; PERF.md) less 1.5 points
+#: of the highest
+SHARDED_RECALL_FLOOR, SHARDED_QG_RECALL_FLOOR, SHARDED_IVFPQ_RECALL_FLOOR = 0.9764, 0.9769, 0.9791
+#: phase 25: rows the four build steps insert into free slots
+N_STEP_ROWS = 1024
+#: phase 26: queries of the C program's searches of phase 21's index
+N_CAPI_Q = 50
+#: phase 27: each sample's arguments on the card (empty: its defaults);
+#: large_single_chip and ngtq_10m run cut from 4M and 10M rows
+SAMPLE_ARGS = {
+    "l2_float": [], "cosine_float": [], "hamming_uint8": [], "hyperbolic": [],
+    "jaccard_sparse": [], "quantized_graph": [], "range_search": [], "sharded_search": [],
+    "large_single_chip": ["--n", "100000", "--queries", "1024"],
+    "ngtq_10m": ["--n", "1000000", "--queries", "1024", "--centroids", "1024"],
+}
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM
 #: bytes/s, and the float32 rate outside the tensor cores, the yardstick of
 #: the compares, sorts and index arithmetic of the ONNG programs (K10)
@@ -1059,7 +1127,7 @@ def u8_arm(u: np.ndarray, dev, kind: str) -> int:
     import ngt_tpu_torch
     from ngt_tpu_torch.ops import window_scan as WS
 
-    base, held = u[:N_BASE], u[N_BASE:]
+    base, held = u[:N_BASE], u[N_BASE : N_BASE + N_U8_Q]
     WS.window_scan.launches = 0
     t0 = time.time()
     idx = ngt_tpu_torch.create(None, dimension=DIM, device=dev)
@@ -1844,6 +1912,613 @@ def dedup_arm(path: str, u: np.ndarray, dev, kind: str) -> int:
     return launches
 
 
+def recall_of(found: np.ndarray, gt: np.ndarray) -> float:
+    from ngt_tpu_torch.ops import bruteforce as BF
+
+    return BF.recall_at_k(np.asarray(found), np.asarray(gt), 10)
+
+
+def exact_gt(base: np.ndarray, queries: np.ndarray, dev, k: int = 10) -> np.ndarray:
+    """Exact top-k row ids of ``queries`` over ``base`` on the card (the
+    port's linear search in query chunks)."""
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.properties import DistanceType
+
+    x = torch.from_numpy(base).to(dev)
+    valid = torch.ones(len(base), dtype=torch.bool, device=dev)
+    out = [BF.linear_search(torch.from_numpy(queries[i : i + 1000]).to(dev), x, valid,
+                            DistanceType.L2, k)[0].cpu().numpy()
+           for i in range(0, len(queries), 1000)]
+    del x, valid
+    return np.concatenate(out).astype(np.int64)
+
+
+def sharded_arm(tmp: str, dev) -> int:
+    """Phase 24: two 1M-row shards on the one card (see the module
+    docstring).  Returns the window-scan launches of the sharded build."""
+    import torch.distributed as dist
+
+    import ngt_tpu_torch.index as TI
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.ops import window_scan as WS
+    from ngt_tpu_torch.parallel import multihost as MH
+    from ngt_tpu_torch.parallel.sharded_ivfpq import ShardedIVFPQ
+    from ngt_tpu_torch.parallel.sharding import ShardedIndex, ShardedQG, make_mesh
+    from ngt_tpu_torch.quant.ivfpq import IVFPQIndex
+
+    secs = {}
+    t0 = time.time()
+    allx = sift_proxy(N_SHARD + N_HELD_OUT, seed=SHARD_SEED)
+    base, held = allx[:N_SHARD], allx[N_SHARD:]
+    secs["data"] = time.time() - t0
+    t0 = time.time()
+    gt = exact_gt(base, held, dev)
+    secs["ground truth"] = time.time() - t0
+
+    # the sharded build: each shard's create + build_index, launches per shard
+    mesh = make_mesh(2, device=dev.type)
+    if [d.type for d in mesh.devices] != [dev.type, dev.type]:
+        raise AssertionError(f"make_mesh(2) did not place both shards on the card: {mesh}")
+    per_shard = []
+    build_index = TI.Index.build_index
+
+    def counted(self, *args, **kwargs):
+        n0 = WS.window_scan.launches
+        build_index(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        per_shard.append(WS.window_scan.launches - n0)
+
+    WS.window_scan.launches = 0
+    TI.Index.build_index = counted
+    t0 = time.time()
+    try:
+        sidx = ShardedIndex.build(base, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        TI.Index.build_index = build_index
+    secs["build"] = time.time() - t0
+    launches = WS.window_scan.launches
+    n_local = sidx._sharded.n_local
+    log(f"sharded: build of {N_SHARD} x {DIM} as 2 shards of {n_local} rows on {mesh}: "
+        f"{secs['build']:.1f} s; window_scan launches per shard {per_shard} (245 expected "
+        f"at 2^20 slots), {launches} in all; seeds per shard "
+        f"{sidx._sharded.seed_ids_local.shape[1]}")
+    if len(per_shard) != 2 or (dev.type == "cuda" and min(per_shard) == 0):
+        raise AssertionError("a shard's build never launched the window-scan kernel")
+
+    # batch_search of the held-out queries, recall against the exact 2M search
+    graph_search.steps = 0
+    t0 = time.time()
+    ids, dists = sidx.batch_search(held, size=10, epsilon=0.1)
+    secs["search"] = time.time() - t0
+    rec = recall_of(ids, gt)
+    sorted_ok = bool((np.diff(dists, axis=1) >= 0).all())
+    log(f"sharded: batch_search of {len(held)} queries at epsilon 0.1: recall@10 {rec:.4f}, "
+        f"{len(held) / secs['search']:.0f} queries/s ({secs['search']:.2f} s, "
+        f"{graph_search.steps} steps over both shards); rows sorted {sorted_ok}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if rec < SHARDED_RECALL_FLOOR or not sorted_ok:
+        raise AssertionError(f"sharded recall@10 {rec:.4f} below {SHARDED_RECALL_FLOOR}")
+
+    # the sharded sq8 quantized graph, blocks built on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    qg = ShardedQG.from_sharded_index(sidx)
+    torch.cuda.synchronize()
+    secs["qg blocks"] = time.time() - t0
+    on_card = all(p.device.type == dev.type for p in qg.blocks.parts + qg.codes.parts)
+    nq = N_SHARD_QG_Q
+    t0 = time.time()
+    qi, _ = qg.search(torch.from_numpy(held[:nq]), k=10, epsilon=0.1)
+    qi = qi.cpu().numpy()
+    secs["qg search"] = time.time() - t0
+    ext = np.where(qi >= 0, sidx.id_map[np.clip(qi, 0, None)], -1)
+    qrec = recall_of(ext, gt[:nq])
+    log(f"sharded: ShardedQG codes + blocks ({qg.eb} columns, scale {qg.sq_scale!r}) built "
+        f"on {dev.type}: {on_card}, {secs['qg blocks']:.2f} s; search of {nq} queries at "
+        f"epsilon 0.1: recall@10 {qrec:.4f}, {secs['qg search']:.2f} s; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not on_card or qrec < SHARDED_QG_RECALL_FLOOR:
+        raise AssertionError(f"sharded qg recall@10 {qrec:.4f} below {SHARDED_QG_RECALL_FLOOR}")
+    del qg
+    torch.cuda.empty_cache()
+
+    # the sharded IVFPQ over a port IVFPQIndex of the same rows
+    t0 = time.time()
+    ivf = IVFPQIndex(dimension=DIM, n_centroids=SHARD_IVF_CENTROIDS, dsub=2, ksub=16, device=dev)
+    for i in range(0, N_SHARD, 1 << 20):
+        ivf.batch_insert(base[i : i + (1 << 20)])
+    ivf.build()
+    torch.cuda.synchronize()
+    secs["ivfpq build"] = time.time() - t0
+    t0 = time.time()
+    sh = ShardedIVFPQ(mesh, ivf)
+    torch.cuda.synchronize()
+    secs["ivfpq shard"] = time.time() - t0
+    rep = sh.memory_report()
+    loads = np.asarray(rep["shard_loads"])
+    t0 = time.time()
+    vi, vd = sh.batch_search(held, size=10, nprobe=SHARD_IVF_NPROBE,
+                             result_expansion=SHARD_IVF_EXP)
+    secs["ivfpq search"] = time.time() - t0
+    vrec = recall_of(vi, gt)
+    ok = vi >= 0
+    true = np.sqrt(((held[:, None, :] - base[np.where(ok, vi, 0)]) ** 2).sum(-1,
+                                                                           dtype=np.float64))
+    exact = bool(np.allclose(vd[ok], true[ok], rtol=1e-4))
+    log(f"sharded: ShardedIVFPQ ({SHARD_IVF_CENTROIDS} centroids, dsub 2, ksub 16; the "
+        f"index built in {secs['ivfpq build']:.1f} s, sharded in {secs['ivfpq shard']:.1f} s): "
+        f"memory_report {rep}; loads within 2x of the mean {bool(loads.max() <= 2 * loads.mean())}; "
+        f"nprobe {SHARD_IVF_NPROBE}, expansion {SHARD_IVF_EXP}: recall@10 {vrec:.4f}, "
+        f"{len(held) / secs['ivfpq search']:.0f} queries/s; distances exact {exact}")
+    if (loads.max() > 2 * loads.mean() or loads.sum() != N_SHARD or not exact
+            or vrec < SHARDED_IVFPQ_RECALL_FLOOR):
+        raise AssertionError(f"sharded IVFPQ: loads {loads}, exact {exact}, recall {vrec:.4f}")
+    del sh, ivf
+    torch.cuda.empty_cache()
+
+    # save_distributed -> open_distributed under a one-rank NCCL group
+    path = os.path.join(tmp, "sharded")
+    t0 = time.time()
+    # one rank: the NCCL bootstrap needs no interface but the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    MH.initialize(f"file://{os.path.join(tmp, 'group_store')}", 1, 0, device=dev.type)
+    try:
+        gmesh = MH.make_global_mesh(2, device=dev.type)
+        backend = dist.get_backend()
+        sidx.save_distributed(path)
+        files = sorted(os.listdir(path))
+        again = ShardedIndex.open_distributed(path, gmesh)
+        nr = N_SHARD_REOPEN_Q
+        ids2, _ = again.batch_search(held[:nr], size=10, epsilon=0.1)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    secs["save + open + search"] = time.time() - t0
+    same = bool(np.array_equal(ids2, ids[:nr]))
+    log(f"sharded: save_distributed ({files}) -> open_distributed on {gmesh} "
+        f"(backend {backend}) -> {nr} queries: ids equal to the in-memory search: {same}")
+    if backend != ("nccl" if dev.type == "cuda" else "gloo") or not same:
+        raise AssertionError("the reopened sharded index disagrees with the in-memory one")
+    del sidx, again
+    torch.cuda.empty_cache()
+    log("sharded: seconds by stage: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return launches
+
+
+def sharded_card_vs_cpu(dev, n: int = 8192, nq: int = 500) -> None:
+    """Phase 25: the sharded programs on the card against the CPU port at
+    8,192 rows, P = 2 (the phase 11 generator)."""
+    from ngt_tpu_torch import convert
+    from ngt_tpu_torch.parallel.sharded_ivfpq import ShardedIVFPQ
+    from ngt_tpu_torch.parallel.sharding import (
+        ShardedGraphIndex,
+        ShardedIndex,
+        ShardedQG,
+        build_local_knng_shards,
+        make_mesh,
+        make_sharded_build_step,
+        shard_host_index,
+    )
+    from ngt_tpu_torch.properties import DistanceType
+    from ngt_tpu_torch.quant.ivfpq import IVFPQIndex
+
+    t_all = time.time()
+    x = sift_proxy(n + nq + N_STEP_ROWS, seed=SEED + 1, kc=64)
+    base, q, extra = x[:n], x[n : n + nq], x[n + nq :]
+    meshes = (make_mesh(2, device=dev.type), make_mesh(2, device="cpu"))
+
+    def agree(a, b, what, threshold=0.999):
+        share = float((a == b).mean())
+        log(f"sharded card vs CPU, {what}: {share:.6f} of entries agree")
+        if share < threshold:
+            raise AssertionError(f"card and CPU disagree on {what}")
+        return share
+
+    card, cpu = (ShardedIndex.build(base, mesh=m) for m in meshes)
+    sc, sp = card._sharded, cpu._sharded
+    if not np.array_equal(sc.x.numpy(), sp.x.numpy()) or not np.array_equal(
+            sc.valid.numpy(), sp.valid.numpy()):
+        raise AssertionError("the card's and the CPU's shard rows differ")
+    agree(sc.nbr.numpy(), sp.nbr.numpy(), f"ShardedIndex.build adjacency at {n} rows")
+    agree(card.batch_search(q, size=10)[0], cpu.batch_search(q, size=10)[0],
+          "ShardedIndex.batch_search ids")
+
+    # ShardedQG from one set of host arrays on both: codes and blocks byte-equal
+    nl = sp.n_local
+    arrays = (sp.x.numpy().reshape(2, nl, -1), sp.nbr.numpy().reshape(2, nl, -1),
+              sp.valid.numpy().reshape(2, nl), sp.seed_ids_local.numpy())
+    qgs = [ShardedQG(m, *arrays, DistanceType.L2) for m in meshes]
+    same = (qgs[0].sq_scale == qgs[1].sq_scale
+            and np.array_equal(qgs[0].codes.numpy(), qgs[1].codes.numpy())
+            and np.array_equal(qgs[0].blocks.numpy(), qgs[1].blocks.numpy()))
+    log(f"sharded card vs CPU, ShardedQG: scale, codes and blocks byte-equal {same}")
+    if not same:
+        raise AssertionError("the card's sq8 codes or blocks differ from the CPU's")
+    qq = torch.from_numpy(q)
+    agree(*(g.search(qq, k=10, epsilon=0.1)[0].cpu().numpy() for g in qgs), "ShardedQG ids")
+    del qgs
+
+    # ShardedIVFPQ: one IVFPQIndex (built on the CPU), carried to the card
+    ivf = IVFPQIndex(dimension=DIM, n_centroids=64, dsub=2, ksub=16, device="cpu")
+    ivf.batch_insert(base)
+    ivf.build()
+    card_ivf = convert.ivfpq_from_state(device=dev, **convert.ivfpq_state(ivf))
+    shs = (ShardedIVFPQ(meshes[0], card_ivf), ShardedIVFPQ(meshes[1], ivf))
+    agree(*(s.batch_search(q, size=10, nprobe=8, result_expansion=3.0)[0] for s in shs),
+          "ShardedIVFPQ ids")
+
+    # 4 build steps of N_STEP_ROWS / 4 rows into free slots (the spare rows
+    # shard_host_index lays out invalid), from one exact per-shard KNNG
+    m_all = n + N_STEP_ROWS
+    xh = np.zeros((m_all, DIM), np.float32)
+    xh[:n] = base
+    vh = np.arange(m_all) < n
+    x_s, _, _, val_s, n_local = shard_host_index(xh, np.full((m_all, 1), -1, np.int32), vh, 2)
+    nbr_s, nbrd_s = build_local_knng_shards(x_s, val_s, 16, DistanceType.L2)
+    seeds = np.arange(64, dtype=np.int32)
+    idxs = [ShardedGraphIndex(m, x_s, nbr_s, val_s, seeds, DistanceType.L2,
+                              nbr_dist_shards=nbrd_s) for m in meshes]
+    steps = [make_sharded_build_step(m, DistanceType.L2, 10, n_local, width=32) for m in meshes]
+    state = [(i.x, i.nbr, i.nbr_dist, i.valid) for i in idxs]
+    per = N_STEP_ROWS // 4
+    nn = [[], []]
+    for s in range(4):
+        j = np.arange(per)
+        gids = ((j % 2) * n_local + n // 2 + s * per // 2 + j // 2).astype(np.int32)
+        newx = extra[s * per : (s + 1) * per]
+        for c in range(2):
+            out = steps[c](*state[c], newx, gids, idxs[c].seed_ids_local)
+            state[c] = tuple(out[:4])
+            nn[c].append(out.new_neighbor_ids.cpu().numpy())
+    agree(np.concatenate(nn[0]), np.concatenate(nn[1]), "build steps' new neighbor ids")
+    agree(state[0][1].numpy(), state[1][1].numpy(), "build steps' nbr")
+    nd = [st[2].numpy() for st in state]
+    agree(np.isclose(nd[0], nd[1], rtol=1e-5), True, "build steps' nbr_dist (within 1e-5)")
+    agree(state[0][3].numpy(), state[1][3].numpy(), "build steps' valid", threshold=1.0)
+    log(f"sharded card vs CPU: {time.time() - t_all:.1f} s")
+
+
+#: phase 26's C program: NGT's C API over the port's library with the
+#: default device, at the sizes of the JAX package's C test, then the 1M
+#: index of phase 21: 50 searches whose ids it prints
+SMOKE_C = r"""
+#include <math.h>
+#include <stdbool.h>
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+typedef void *NGTIndex;
+typedef void *NGTProperty;
+typedef void *NGTObjectSpace;
+typedef void *NGTObjectDistances;
+typedef void *NGTError;
+typedef void *NGTOptimizer;
+typedef void *NGTQGIndex;
+typedef uint32_t ObjectID;
+typedef struct { ObjectID id; float distance; } NGTObjectDistance;
+typedef struct { float *query; size_t size; float epsilon; float accuracy; float radius; size_t edge_size; } NGTQuery;
+typedef struct { size_t no_of_queries; size_t no_of_results; size_t no_of_threads; float target_accuracy;
+                 size_t target_no_of_objects; size_t no_of_sample_objects; size_t max_of_no_of_edges; bool log; }
+    NGTAnngEdgeOptimizationParameter;
+typedef struct { float *query; size_t size; float epsilon; float result_expansion; float radius; } NGTQGQuery;
+typedef struct { float dimension_of_subvector; size_t max_number_of_edges; } NGTQGQuantizationParameters;
+extern NGTError ngt_create_error_object(void);
+extern const char *ngt_get_error_string(const NGTError);
+extern void ngt_clear_error_string(NGTError);
+extern void ngt_destroy_error_object(NGTError);
+extern NGTProperty ngt_create_property(NGTError);
+extern bool ngt_set_property_dimension(NGTProperty, int32_t, NGTError);
+extern bool ngt_set_property_edge_size_for_creation(NGTProperty, int16_t, NGTError);
+extern bool ngt_set_property_edge_size_for_search(NGTProperty, int16_t, NGTError);
+extern bool ngt_set_property_distance_type_l2(NGTProperty, NGTError);
+extern bool ngt_set_property_object_type_float(NGTProperty, NGTError);
+extern void ngt_destroy_property(NGTProperty);
+extern bool ngt_get_property(NGTIndex, NGTProperty, NGTError);
+extern int32_t ngt_get_property_dimension(NGTProperty, NGTError);
+extern int16_t ngt_get_property_edge_size_for_creation(NGTProperty, NGTError);
+extern int16_t ngt_get_property_edge_size_for_search(NGTProperty, NGTError);
+extern int32_t ngt_get_property_object_type(NGTProperty, NGTError);
+extern int32_t ngt_get_property_distance_type(NGTProperty, NGTError);
+extern bool ngt_is_property_object_type_float(int32_t);
+extern bool ngt_is_property_object_type_integer(int32_t);
+extern NGTIndex ngt_create_graph_and_tree(const char *, NGTProperty, NGTError);
+extern NGTIndex ngt_create_graph_and_tree_in_memory(NGTProperty, NGTError);
+extern NGTIndex ngt_open_index(const char *, NGTError);
+extern void ngt_close_index(NGTIndex);
+extern ObjectID ngt_insert_index(NGTIndex, double *, uint32_t, NGTError);
+extern ObjectID ngt_append_index(NGTIndex, double *, uint32_t, NGTError);
+extern ObjectID ngt_insert_index_as_float(NGTIndex, float *, uint32_t, NGTError);
+extern ObjectID ngt_append_index_as_float(NGTIndex, float *, uint32_t, NGTError);
+extern bool ngt_batch_append_index(NGTIndex, float *, uint32_t, NGTError);
+extern bool ngt_batch_insert_index(NGTIndex, float *, uint32_t, uint32_t *, NGTError);
+extern bool ngt_create_index(NGTIndex, uint32_t, NGTError);
+extern bool ngt_remove_index(NGTIndex, ObjectID, NGTError);
+extern bool ngt_save_index(NGTIndex, const char *, NGTError);
+extern NGTObjectDistances ngt_create_empty_results(NGTError);
+extern void ngt_destroy_results(NGTObjectDistances);
+extern int32_t ngt_get_size(NGTObjectDistances, NGTError);
+extern uint32_t ngt_get_result_size(NGTObjectDistances, NGTError);
+extern NGTObjectDistance ngt_get_result(const NGTObjectDistances, uint32_t, NGTError);
+extern bool ngt_search_index(NGTIndex, double *, int32_t, size_t, float, float, NGTObjectDistances, NGTError);
+extern bool ngt_search_index_as_float(NGTIndex, float *, int32_t, size_t, float, float, NGTObjectDistances, NGTError);
+extern bool ngt_search_index_with_query(NGTIndex, NGTQuery, NGTObjectDistances, NGTError);
+extern bool ngt_linear_search_index(NGTIndex, double *, int32_t, size_t, NGTObjectDistances, NGTError);
+extern bool ngt_linear_search_index_as_float(NGTIndex, float *, int32_t, size_t, NGTObjectDistances, NGTError);
+extern bool ngt_linear_search_index_with_query(NGTIndex, NGTQuery, NGTObjectDistances, NGTError);
+extern uint32_t ngt_get_number_of_objects(NGTIndex, NGTError);
+extern uint32_t ngt_get_object_repository_size(NGTIndex, NGTError);
+extern NGTObjectSpace ngt_get_object_space(NGTIndex, NGTError);
+extern float *ngt_get_object_as_float(NGTObjectSpace, ObjectID, NGTError);
+extern uint8_t *ngt_get_object_as_integer(NGTObjectSpace, ObjectID, NGTError);
+extern bool ngt_get_edges(NGTIndex, ObjectID, NGTObjectDistances, NGTError);
+extern bool ngt_refine_anng(NGTIndex, float, float, int, int, size_t, NGTError);
+extern NGTOptimizer ngt_create_optimizer(bool, NGTError);
+extern bool ngt_optimizer_set(NGTOptimizer, int, int, int, float, float, float, float, double, double, NGTError);
+extern bool ngt_optimizer_set_minimum(NGTOptimizer, int, int, int, int, NGTError);
+extern bool ngt_optimizer_set_extension(NGTOptimizer, float, float, float, float, double, double, NGTError);
+extern bool ngt_optimizer_set_processing_modes(NGTOptimizer, bool, bool, bool, NGTError);
+extern bool ngt_optimizer_execute(NGTOptimizer, const char *, const char *, NGTError);
+extern bool ngt_optimizer_adjust_search_coefficients(NGTOptimizer, const char *, NGTError);
+extern void ngt_destroy_optimizer(NGTOptimizer);
+extern NGTAnngEdgeOptimizationParameter ngt_get_anng_edge_optimization_parameter(void);
+extern bool ngt_optimize_number_of_edges(const char *, NGTAnngEdgeOptimizationParameter, NGTError);
+extern NGTQGIndex ngtqg_open_index(const char *, NGTError);
+extern void ngtqg_initialize_quantization_parameters(NGTQGQuantizationParameters *);
+extern bool ngtqg_quantize(const char *, NGTQGQuantizationParameters, NGTError);
+extern void ngtqg_initialize_query(NGTQGQuery *);
+extern bool ngtqg_search_index(NGTQGIndex, NGTQGQuery, NGTObjectDistances, NGTError);
+extern void ngtqg_close_index(NGTQGIndex);
+
+#define CHECK(cond, msg) \
+  if (!(cond)) { fprintf(stderr, "FAIL: %s: %s\n", msg, ngt_get_error_string(err)); return 1; }
+static void row(float *v, int i) { for (int d = 0; d < 8; d++) v[d] = (float)((i * 29 + d * 13) % 89) / 10.0f; }
+
+int main(int argc, char **argv) {
+  /* argv: <scratch index dir> <1M index dir> <queries f32 file> <count> <dim> */
+  const char *path = argv[1];
+  char onng[1024];
+  snprintf(onng, sizeof(onng), "%s.onng", path);
+  NGTError err = ngt_create_error_object();
+  NGTProperty prop = ngt_create_property(err);
+  CHECK(ngt_set_property_dimension(prop, 8, err), "dimension");
+  CHECK(ngt_set_property_edge_size_for_creation(prop, 8, err), "edges");
+  CHECK(ngt_set_property_edge_size_for_search(prop, 16, err), "search edges");
+  CHECK(ngt_set_property_distance_type_l2(prop, err), "metric");
+  CHECK(ngt_set_property_object_type_float(prop, err), "object type");
+  NGTIndex idx = ngt_create_graph_and_tree(path, prop, err);
+  CHECK(idx != NULL, "create");
+  ngt_destroy_property(prop);
+  float v[8];
+  double dv[8];
+  for (int i = 0; i < 200; i++) {
+    row(v, i);
+    for (int d = 0; d < 8; d++) dv[d] = (double)v[d];
+    ObjectID id = i % 4 == 0 ? ngt_insert_index_as_float(idx, v, 8, err)
+                : i % 4 == 1 ? ngt_append_index_as_float(idx, v, 8, err)
+                : i % 4 == 2 ? ngt_insert_index(idx, dv, 8, err)
+                             : ngt_append_index(idx, dv, 8, err);
+    CHECK(id == (ObjectID)(i + 1), "1-based insert id");
+  }
+  float batch[10 * 8];
+  for (int i = 0; i < 10; i++) row(batch + i * 8, 200 + i);
+  CHECK(ngt_batch_append_index(idx, batch, 10, err), "batch append");
+  uint32_t ids[10];
+  for (int i = 0; i < 10; i++) row(batch + i * 8, 210 + i);
+  CHECK(ngt_batch_insert_index(idx, batch, 10, ids, err), "batch insert");
+  CHECK(ids[0] == 211 && ids[9] == 220, "batch insert ids");
+  CHECK(ngt_create_index(idx, 4, err), "build");
+  CHECK(ngt_get_number_of_objects(idx, err) == 220, "count");
+  CHECK(ngt_get_object_repository_size(idx, err) >= 220, "repository size");
+  NGTProperty got = ngt_create_property(err);
+  CHECK(ngt_get_property(idx, got, err), "get property");
+  CHECK(ngt_get_property_dimension(got, err) == 8, "get dimension");
+  CHECK(ngt_get_property_edge_size_for_creation(got, err) == 8, "get creation edges");
+  CHECK(ngt_get_property_edge_size_for_search(got, err) == 16, "get search edges");
+  int32_t ot = ngt_get_property_object_type(got, err);
+  CHECK(ngt_is_property_object_type_float(ot) && !ngt_is_property_object_type_integer(ot), "float");
+  CHECK(ngt_get_property_distance_type(got, err) == 1, "L2 is 1");
+  ngt_destroy_property(got);
+
+  row(v, 5);
+  for (int d = 0; d < 8; d++) dv[d] = (double)v[d];
+  NGTObjectDistances res = ngt_create_empty_results(err);
+  CHECK(ngt_search_index(idx, dv, 8, 5, 0.1f, 1e30f, res, err), "search double");
+  CHECK(ngt_get_result_size(res, err) == 5 && ngt_get_size(res, err) == 5, "result size");
+  CHECK(ngt_get_result(res, 0, err).id == 6 && ngt_get_result(res, 0, err).distance < 1e-4, "self");
+  CHECK(ngt_search_index_as_float(idx, v, 8, 5, 0.1f, 1e30f, res, err), "search float");
+  CHECK(ngt_get_result(res, 0, err).id == 6, "search float id");
+  NGTQuery q;
+  q.query = v; q.size = 5; q.epsilon = 0.1f; q.accuracy = 0.0f; q.radius = 1e30f; q.edge_size = 0;
+  CHECK(ngt_search_index_with_query(idx, q, res, err), "search query");
+  CHECK(ngt_get_result(res, 0, err).id == 6, "search query id");
+  q.accuracy = 0.95f;
+  CHECK(!ngt_search_index_with_query(idx, q, res, err), "accuracy needs a table");
+  ngt_clear_error_string(err);
+  q.accuracy = 0.0f;
+  CHECK(ngt_linear_search_index(idx, dv, 8, 5, res, err), "linear double");
+  CHECK(ngt_get_result(res, 0, err).id == 6, "linear double id");
+  CHECK(ngt_linear_search_index_as_float(idx, v, 8, 5, res, err), "linear float");
+  CHECK(ngt_get_result(res, 0, err).id == 6, "linear float id");
+  CHECK(ngt_linear_search_index_with_query(idx, q, res, err), "linear query");
+  CHECK(ngt_get_result(res, 0, err).id == 6, "linear query id");
+  NGTObjectSpace space = ngt_get_object_space(idx, err);
+  CHECK(space != NULL, "object space");
+  float *obj = ngt_get_object_as_float(space, 6, err);
+  CHECK(obj != NULL, "object as float");
+  for (int d = 0; d < 8; d++) CHECK(fabsf(obj[d] - v[d]) < 1e-6, "object round trip");
+  uint8_t *iobj = ngt_get_object_as_integer(space, 6, err);
+  CHECK(iobj != NULL && iobj[0] == (uint8_t)v[0], "object as integer");
+  CHECK(ngt_get_edges(idx, 6, res, err), "edges");
+  uint32_t ne = ngt_get_result_size(res, err);
+  CHECK(ne >= 1 && ne <= 64, "edge count");
+  NGTObjectDistance e0 = ngt_get_result(res, 0, err);
+  CHECK(e0.id >= 1 && e0.id <= 220 && e0.id != 6, "edge id");
+  CHECK(ngt_refine_anng(idx, 0.1f, -1.0f, 0, -2147483647, 64, err), "refine");
+  CHECK(ngt_save_index(idx, path, err), "save");
+  CHECK(ngt_remove_index(idx, 6, err), "remove");
+  ngt_close_index(idx);
+  NGTIndex re = ngt_open_index(path, err);
+  CHECK(re != NULL && ngt_get_number_of_objects(re, err) == 220, "reopen");
+  ngt_close_index(re);
+  prop = ngt_create_property(err);
+  CHECK(ngt_set_property_dimension(prop, 8, err), "in-memory dimension");
+  NGTIndex mem = ngt_create_graph_and_tree_in_memory(prop, err);
+  CHECK(mem != NULL, "in-memory create");
+  ngt_destroy_property(prop);
+  row(v, 3);
+  CHECK(ngt_insert_index_as_float(mem, v, 8, err) == 1, "in-memory insert");
+  ngt_close_index(mem);
+  NGTOptimizer opt = ngt_create_optimizer(true, err);
+  CHECK(opt != NULL, "optimizer");
+  CHECK(ngt_optimizer_set(opt, 6, 30, 0, 0.3f, 0.5f, 0.8f, 0.9f, 0.0, 0.0, err), "optimizer set");
+  CHECK(ngt_optimizer_set_minimum(opt, 6, 30, 0, 0, err), "optimizer minimum");
+  CHECK(ngt_optimizer_set_extension(opt, 0.3f, 0.5f, 0.8f, 0.9f, 0.0, 0.0, err), "optimizer extension");
+  CHECK(ngt_optimizer_set_processing_modes(opt, true, false, true, err), "optimizer modes");
+  CHECK(ngt_optimizer_execute(opt, path, onng, err), "optimizer execute");
+  CHECK(ngt_optimizer_adjust_search_coefficients(opt, onng, err), "optimizer adjust");
+  ngt_destroy_optimizer(opt);
+  NGTAnngEdgeOptimizationParameter p = ngt_get_anng_edge_optimization_parameter();
+  CHECK(p.no_of_queries == 200 && p.max_of_no_of_edges == 100, "edge parameter defaults");
+  p.target_accuracy = 0.9f;
+  CHECK(ngt_optimize_number_of_edges(path, p, err), "optimize edges");
+  CHECK(ngt_open_index("/nonexistent/nowhere", err) == NULL, "bad open");
+  CHECK(strlen(ngt_get_error_string(err)) > 0, "error string set");
+  ngt_clear_error_string(err);
+  CHECK(strlen(ngt_get_error_string(err)) == 0, "error string cleared");
+  NGTQGQuantizationParameters qp;
+  ngtqg_initialize_quantization_parameters(&qp);
+  CHECK(qp.max_number_of_edges == 128, "qg parameter defaults");
+  CHECK(ngtqg_quantize(path, qp, err), "quantize");
+  NGTQGIndex qg = ngtqg_open_index(path, err);
+  CHECK(qg != NULL, "qg open");
+  NGTQGQuery qq;
+  ngtqg_initialize_query(&qq);
+  CHECK(qq.size == 20 && qq.result_expansion == 3.0f, "qg query defaults");
+  row(v, 7);
+  qq.query = v; qq.size = 5; qq.epsilon = 0.1f;
+  CHECK(ngtqg_search_index(qg, qq, res, err), "qg search");
+  CHECK(ngt_get_result_size(res, err) == 5 && ngt_get_result(res, 0, err).id == 8, "qg self");
+  ngtqg_close_index(qg);
+  printf("SMOKE C API OK\n");
+  fflush(stdout);
+
+  /* the 1M index: one search call per query, ids printed */
+  int count = atoi(argv[4]), dim = atoi(argv[5]);
+  float *qs = (float *)malloc(sizeof(float) * (size_t)count * dim);
+  FILE *fh = fopen(argv[3], "rb");
+  CHECK(fh && fread(qs, sizeof(float), (size_t)count * dim, fh) == (size_t)count * dim, "queries");
+  fclose(fh);
+  NGTIndex big = ngt_open_index(argv[2], err);
+  CHECK(big != NULL, "open the 1M index");
+  printf("OBJECTS %u\n", ngt_get_number_of_objects(big, err));
+  for (int i = 0; i < count; ++i) {
+    CHECK(ngt_search_index_as_float(big, qs + (size_t)i * dim, dim, 10, 0.1f, 1e30f, res, err),
+          "1M search");
+    printf("Q %d", i);
+    for (uint32_t r = 0; r < ngt_get_result_size(res, err); ++r) printf(" %u", ngt_get_result(res, r, err).id);
+    printf("\n");
+  }
+  ngt_close_index(big);
+  free(qs);
+  ngt_destroy_results(res);
+  ngt_destroy_error_object(err);
+  printf("SMOKE 1M OK\n");
+  return 0;
+}
+"""
+
+
+def capi_arm(path: str, queries: np.ndarray, tmp: str, dev) -> None:
+    """Phase 26: the C ABI on the card (see the module docstring)."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch import native
+
+    t0 = time.time()
+    so = native.build_capi()
+    build_s = time.time() - t0
+    src, exe = os.path.join(tmp, "smoke_capi.c"), os.path.join(tmp, "smoke_capi")
+    with open(src, "w") as fh:
+        fh.write(SMOKE_C)
+    subprocess.run(["g++", "-O1", "-o", exe, src, so, *native.python_link()[1],
+                    f"-Wl,-rpath,{os.path.dirname(so)}"],
+                   check=True, capture_output=True, text=True, timeout=300)
+    qfile = os.path.join(tmp, "capi_queries.f32")
+    q = np.ascontiguousarray(queries[:N_CAPI_Q], np.float32)
+    q.tofile(qfile)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "NGT_TPU_TORCH_DEVICE"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    if dev.type != "cuda":   # a rehearsal on the CPU; on the card the default holds
+        env["NGT_TPU_TORCH_DEVICE"] = dev.type
+    t0 = time.time()
+    proc = subprocess.run([exe, os.path.join(tmp, "capi_idx"), path, qfile, str(len(q)),
+                           str(q.shape[1])], capture_output=True, text=True, timeout=900,
+                          env=env)
+    secs = time.time() - t0
+    if proc.returncode != 0 or "SMOKE 1M OK" not in proc.stdout:
+        raise AssertionError(f"the C program failed ({proc.returncode}):\n{proc.stdout[-2000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    got = [[int(v) for v in ln.split()[2:]] for ln in lines if ln.startswith("Q ")]
+    idx = ngt_tpu_torch.open_index(path, zero_based_numbering=False, device=dev)
+    ids, dists = idx.batch_search(q, size=10, epsilon=0.1, radius=float(np.float32(1e30)))
+    mine = [[int(i) for i, d in zip(r, dr) if i >= 1 and np.isfinite(d)]
+            for r, dr in zip(ids, dists)]
+    idx.close()
+    device = env.get("NGT_TPU_TORCH_DEVICE", "the default, cuda")
+    log(f"C ABI: library built in {build_s:.1f} s ({so}); the smoke's C program on {device}: "
+        f"{lines[0]}; {lines[1]}; {len(got)} ngt_search_index_as_float "
+        f"calls on phase 21's index; the whole program {secs:.1f} s; ids equal to in-process "
+        f"Index.search: {got == mine}")
+    if got != mine or len(got) != N_CAPI_Q:
+        raise AssertionError("the C ABI's ids differ from the in-process search's")
+
+
+def samples_arm(dev) -> dict:
+    """Phase 27: each samples/torch script's main() in-process on the card
+    at SAMPLE_ARGS' sizes (the defaults where none is given); returns each
+    one's seconds."""
+    import importlib.util
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "samples", "torch")
+    secs = {}
+    for name, args in SAMPLE_ARGS.items():
+        spec = importlib.util.spec_from_file_location(f"ngt_tpu_torch_sample_{name}",
+                                                      os.path.join(root, f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.time()
+        out = io_quiet(mod.main, ["--device", str(dev.type), *args])
+        torch.cuda.synchronize()
+        secs[name] = time.time() - t0
+        log(f"samples: {name} {' '.join(args) or '(its defaults)'}: {secs[name]:.1f} s; "
+            f"{summary(out)}")
+        torch.cuda.empty_cache()
+    return secs
+
+
+def io_quiet(fn, argv):
+    """``fn(argv)`` with its printed lines held back (the smoke prints a
+    summary of each sample's result instead)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        return fn(argv)
+
+
+def summary(out) -> str:
+    """A short text of a sample's return value."""
+    if isinstance(out, list) and out and isinstance(out[0], dict):
+        return "; ".join(", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                                   for k, v in r.items()) for r in out)
+    if isinstance(out, dict) and "settings" in out:
+        return f"build {out['build_s']:.1f} s; " + summary(out["settings"])
+    return str(out)[:200]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -1960,7 +2635,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant_card_vs_cpu(dev)
     torch.cuda.empty_cache()
-    onng_card_vs_cpu(dev)
+    onng_card_vs_cpu(dev, n=N_ONNG_CHECK)
     torch.cuda.empty_cache()
 
     # 21-23. the CLI, export and import, and dedup at 1M
@@ -1971,12 +2646,30 @@ def main() -> int:
         export_import(path, u[N_BASE : N_BASE + N_CLI_Q], tmp, dev, kind)
         torch.cuda.empty_cache()
         dedup_launches = dedup_arm(path, u, dev, kind)
+        log(f"window_scan launches: {cli_launches} in the CLI's create, {dedup_launches} in "
+            "the dedup's bulk append")
+        torch.cuda.empty_cache()
+        # 24-27. sharding, the C ABI and the samples
+        t0 = time.time()
+        sharded_launches = sharded_arm(tmp, dev)
+        log(f"phase 24 (sharded, two 1M-row shards): {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        sharded_card_vs_cpu(dev)
+        log(f"phase 25 (sharded card vs CPU): {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        capi_arm(path, u[N_BASE:], tmp, dev)
+        log(f"phase 26 (the C ABI): {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        sample_s = samples_arm(dev)
+        log(f"phase 27 (the samples): {time.time() - t0:.1f} s; " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sample_s.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"window_scan launches: {cli_launches} in the CLI's create, {dedup_launches} in the "
-        "dedup's bulk append")
 
-    # 24. kernels, device, result
+    # 28. kernels, device, result
     # the last three lines go out bare: the kernels line, the nvidia-smi
     # line and the result line are read by machines
     log(f"total {time.time() - t_start:.1f} s")
@@ -1985,14 +2678,16 @@ def main() -> int:
         "route": "cuda",
         "source": "ngt_tpu_torch/csrc/window_scan.cu",
         "replaces": "ngt_tpu/ops/pallas_scan.py:88",
-        "launches": launches + append_launches + cli_launches + dedup_launches,
+        "launches": launches + append_launches + cli_launches + dedup_launches
+        + sharded_launches,
         "launches_by_path": {"main path: build": launches,
                              "main path: bulk append": append_launches,
                              "u8 arm: build": u8_launches,
                              "Cosine arm: build": cos_launches,
                              "ONNG arm: build (phase 12's index)": cos_launches,
                              "CLI: create (phase 21)": cli_launches,
-                             "dedup: bulk append (phase 23)": dedup_launches},
+                             "dedup: bulk append (phase 23)": dedup_launches,
+                             "sharded: build (phase 24)": sharded_launches},
         "matched": True,
         "max_abs_err": err,
         "ms": ms,

@@ -9,7 +9,10 @@ hand-written kernels live in ``csrc/`` and are built at first use by
 ``ops/_build.py``.  The interfaces: ``python -m ngt_tpu_torch`` (the CLI,
 ``cli.py``), ``ngt_tpu_torch.ngtpy`` (a drop-in ``ngtpy``),
 ``ngt_tpu_torch.base`` (the ``ngt.base`` surface) and
-``ngt_tpu_torch.annb`` (ann-benchmarks adapters).
+``ngt_tpu_torch.annb`` (ann-benchmarks adapters); ``parallel/`` shards an
+index over a mesh of devices (``ShardedIndex``), merged with
+torch.distributed collectives across processes; ``csrc/`` also holds the C
+ABI (``native.build_capi``).
 """
 
 from ngt_tpu_torch.properties import (  # noqa: F401
@@ -28,6 +31,10 @@ __version__ = "0.1.0"
 
 def __getattr__(name):
     # lazy, as ngt_tpu/__init__.py has them
+    if name == "ShardedIndex":
+        from ngt_tpu_torch.parallel.sharding import ShardedIndex
+
+        return ShardedIndex
     if name == "IVFPQIndex":
         from ngt_tpu_torch.quant.ivfpq import IVFPQIndex
 

@@ -41,6 +41,11 @@ INF = float("inf")
 #: (reference NGT_EXPLORATION_COEFFICIENT, defines.h.in:52)
 DEFAULT_EPSILON = 0.1
 
+#: elements of the seed rows gathered for one chunk of queries: the sharded
+#: index seeds every query with all of a shard's representatives (n/32 at
+#: 1M rows), whose [B, S, D] gather would not fit at once
+SEED_GATHER_ELEMS = 1 << 27
+
 #: 1 << j for j in 0..31 as int32 bit patterns (bit 31 is the sign bit)
 _BITS = np.array([1 << j for j in range(32)], dtype=np.uint32).view(np.int32)
 
@@ -140,17 +145,24 @@ def graph_search(
     if scorer is None:
         q_sq = D.sq_norms(queries) if x_sqnorm is not None else None
 
-        def score(xs, ids):
+        def score(xs, ids, lo=0, hi=b):
             rows_sq = None if x_sqnorm is None else x_sqnorm[ids]
-            return D.gathered(metric, queries, xs, xs_sqnorm=rows_sq, q_sqnorm=q_sq)
+            return D.gathered(metric, queries[lo:hi], xs, xs_sqnorm=rows_sq,
+                              q_sqnorm=None if q_sq is None else q_sq[lo:hi])
     else:
-        def score(xs, ids):
-            return scorer(queries, xs)
+        def score(xs, ids, lo=0, hi=b):
+            return scorer(queries[lo:hi], xs)
 
-    # ---- seed scoring (reference setupSeeds, Graph.cpp:243-394)
+    # ---- seed scoring (reference setupSeeds, Graph.cpp:243-394), in query
+    # chunks of at most SEED_GATHER_ELEMS gathered elements
     seed64 = seed_ids.to(torch.int64)
     seed_safe = seed64.clamp(0, n_pad - 1)
-    seed_d = score((seed_x if block_mode else x)[seed_safe], seed_safe)
+    seed_rows = seed_x if block_mode else x
+    step = max(1, SEED_GATHER_ELEMS // max(s * seed_rows.shape[1], 1))
+    seed_d = torch.cat([
+        score(seed_rows[seed_safe[lo : lo + step]], seed_safe[lo : lo + step], lo, lo + step)
+        for lo in range(0, max(b, 1), step)
+    ])
     seed_d = torch.where((seed64 >= 0) & valid[seed_safe], seed_d, INF)
     # a repeated seed id keeps its first occurrence only
     seed_d = torch.where(_repeats(seed64), INF, seed_d)

@@ -1,7 +1,10 @@
 """The port's host library (the counterpart of ``ngt_tpu/native``: the
 union-find, edge merge, constrained reverse edges, TSV ingestion and the
 text export stream's formatters and parsers): ``csrc/host_graph.cpp`` built
-by ``g++ -O3 -shared -fPIC`` at first use and called through ctypes.
+by ``g++ -O3 -shared -fPIC`` at first use and called through ctypes.  The
+C ABI, ``csrc/ngt_tpu_torch_capi.c`` (NGT's ``ngt_*`` functions over an
+embedded interpreter), is built by ``build_capi`` against libpython, for C
+programs to link.
 
 The library lands in ``build/ngt_tpu_torch/<hash of the source and
 flags>/`` at the repository root (git-ignored), written under a temporary
@@ -17,6 +20,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import sysconfig
 import threading
 
 import numpy as np
@@ -26,6 +30,8 @@ from ngt_tpu_torch.ops._build import BUILD_ROOT, CSRC
 SOURCE = os.path.join(CSRC, "host_graph.cpp")
 FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-std=c++17"]
 LIB_NAME = "libngt_tpu_torch_host.so"
+CAPI_SOURCE = os.path.join(CSRC, "ngt_tpu_torch_capi.c")
+CAPI_LIB_NAME = "libngt_tpu_torch_c.so"
 
 _lock = threading.Lock()
 _lib = None
@@ -36,27 +42,60 @@ _F32 = ctypes.POINTER(ctypes.c_float)
 _U8 = ctypes.POINTER(ctypes.c_uint8)
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    with open(SOURCE, "rb") as fh:
+def _lib_path(source: str, flags: list[str], name: str) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    with open(source, "rb") as fh:
         h.update(fh.read())
-    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], name)
 
 
-def _build(out: str) -> None:
+def library_path() -> str:
+    return _lib_path(SOURCE, FLAGS, LIB_NAME)
+
+
+def _build(out: str, source: str | None = None, flags: list[str] | None = None,
+           libs: list[str] = ()) -> None:
+    """``g++ flags -o out source libs`` (the host library's SOURCE and FLAGS
+    by default) through a temporary name and ``os.replace``; a failed
+    compile raises with the compiler's output."""
+    source = source or SOURCE
+    flags = FLAGS if flags is None else flags
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     try:
         res = subprocess.run(
-            ["g++", *FLAGS, "-o", tmp, SOURCE],
+            ["g++", *flags, "-o", tmp, source, *libs],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if res.returncode != 0:
-            raise RuntimeError(f"g++ failed on {SOURCE}:\n{res.stdout}")
+            raise RuntimeError(f"g++ failed on {source}:\n{res.stdout}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+
+
+def python_link() -> tuple[list[str], list[str]]:
+    """(compile flags, link arguments) of this interpreter's libpython: what
+    the C ABI library and the C programs that link it are built with."""
+    libdir = sysconfig.get_config_var("LIBDIR") or ""
+    ver = sysconfig.get_config_var("LDVERSION") or sysconfig.get_config_var("VERSION")
+    return ([f"-I{sysconfig.get_paths()['include']}"],
+            [f"-L{libdir}", f"-lpython{ver}", f"-Wl,-rpath,{libdir}"])
+
+
+def build_capi() -> str:
+    """Build the C ABI library (``csrc/ngt_tpu_torch_capi.c``: NGT's C API,
+    Capi.h:60-212, forwarding to this package through an embedded
+    interpreter) at first use and return its path.  C programs link it and
+    libpython, and pick the device with ``NGT_TPU_TORCH_DEVICE``."""
+    inc, libs = python_link()
+    flags = ["-O2", "-shared", "-fPIC", *inc]
+    out = _lib_path(CAPI_SOURCE, flags + libs, CAPI_LIB_NAME)
+    with _lock:
+        if not os.path.exists(out):
+            _build(out, CAPI_SOURCE, flags, libs)
+    return out
 
 
 def load() -> ctypes.CDLL:

@@ -392,3 +392,87 @@ def test_export_of_a_card_index_equals_the_cpu_port(cuda):
     np.testing.assert_array_equal(back.graph.nbr_ids[:n], card.graph.nbr_ids[:n])
     np.testing.assert_array_equal(back.graph.nbr_dist[:n], card.graph.nbr_dist[:n])
     np.testing.assert_array_equal(back.store._x[:n], card.store._x[:n])
+
+
+def test_sharded_search_on_the_card_matches_cpu(cuda):
+    """ShardedIndex over make_mesh(2) (both shards on the one card) against
+    the same build on a CPU mesh at 4,096 rows: ids on >= 99.9% of
+    entries (each shard's build sums in another order on the card)."""
+    from ngt_tpu_torch.parallel.sharding import ShardedIndex, make_mesh
+
+    rng = np.random.default_rng(9)
+    data = rng.normal(size=(4096, 32)).astype(np.float32)
+    queries = rng.normal(size=(200, 32)).astype(np.float32)
+    mesh = make_mesh(2)
+    assert [d.type for d in mesh.devices] == ["cuda", "cuda"]
+    card = ShardedIndex.build(data, mesh=mesh)
+    host = ShardedIndex.build(data, mesh=make_mesh(2, device="cpu"))
+    ci, cd = card.batch_search(queries, size=10, epsilon=0.1)
+    hi, hd = host.batch_search(queries, size=10, epsilon=0.1)
+    assert (ci == hi).mean() >= 0.999
+    np.testing.assert_allclose(cd[ci == hi], hd[ci == hi], rtol=1e-5)
+
+
+#: a C program on the C ABI with the default device: 300 rows, build, and
+#: every row's own search must return it first
+_CARD_C = r"""
+#include <stdbool.h>
+#include <stdint.h>
+#include <stdio.h>
+typedef void *H;
+typedef struct { uint32_t id; float distance; } OD;
+extern H ngt_create_error_object(void);
+extern const char *ngt_get_error_string(const H);
+extern H ngt_create_property(H);
+extern bool ngt_set_property_dimension(H, int32_t, H);
+extern H ngt_create_graph_and_tree_in_memory(H, H);
+extern bool ngt_batch_append_index(H, float *, uint32_t, H);
+extern bool ngt_create_index(H, uint32_t, H);
+extern H ngt_create_empty_results(H);
+extern OD ngt_get_result(const H, uint32_t, H);
+extern bool ngt_search_index_as_float(H, float *, int32_t, size_t, float, float, H, H);
+int main(void) {
+  static float rows[300 * 16];
+  uint32_t st = 7u;
+  for (int i = 0; i < 300 * 16; ++i) { st = st * 1664525u + 1013904223u; rows[i] = (float)(st >> 8) / 16777216.0f; }
+  H err = ngt_create_error_object();
+  H prop = ngt_create_property(err);
+  ngt_set_property_dimension(prop, 16, err);
+  H idx = ngt_create_graph_and_tree_in_memory(prop, err);
+  if (!idx || !ngt_batch_append_index(idx, rows, 300, err) || !ngt_create_index(idx, 4, err)) {
+    fprintf(stderr, "%s\n", ngt_get_error_string(err)); return 1;
+  }
+  H res = ngt_create_empty_results(err);
+  for (int i = 0; i < 300; ++i) {
+    if (!ngt_search_index_as_float(idx, rows + i * 16, 16, 3, 0.1f, 1e30f, res, err) ||
+        ngt_get_result(res, 0, err).id != (uint32_t)(i + 1)) {
+      fprintf(stderr, "row %d: %s\n", i, ngt_get_error_string(err)); return 1;
+    }
+  }
+  printf("CARD C API OK\n");
+  return 0;
+}
+"""
+
+
+def test_capi_runs_on_the_card_by_default(cuda, tmp_path):
+    """build_capi() on the card's machine, and one C program with
+    NGT_TPU_TORCH_DEVICE unset (the default, cuda)."""
+    import os
+    import subprocess
+
+    from ngt_tpu_torch import native
+
+    so = native.build_capi()
+    src = tmp_path / "card.c"
+    src.write_text(_CARD_C)
+    exe = str(tmp_path / "card")
+    subprocess.run(["g++", "-O1", "-o", exe, str(src), so, *native.python_link()[1],
+                    f"-Wl,-rpath,{os.path.dirname(so)}"],
+                   check=True, capture_output=True, timeout=120)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "NGT_TPU_TORCH_DEVICE"}
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([exe], capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "CARD C API OK" in r.stdout

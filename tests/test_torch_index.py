@@ -189,9 +189,11 @@ def _imports(path):
 
 def test_no_jax_imports_in_port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "ngt_tpu_torch")):
-        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    for top in ("ngt_tpu_torch", os.path.join("samples", "torch")):
+        for root, _, names in os.walk(os.path.join(REPO, top)):
+            files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 10
+    assert any(os.sep + "samples" + os.sep in f for f in files)
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
