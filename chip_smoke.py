@@ -19,20 +19,23 @@ codes, the IVFPQ mirror), and checks each result:
  3. the window-scan kernel against its plain torch version at 65,536 x 128
     with 1,024 queries, a ragged case (100 queries, 37 windows) and a
     masked case (scores to rtol 1e-4 / atol 1e-3, ids on >= 99.9% of
-    entries: the tolerances of tests/test_pallas_scan.py);
+    entries: the tolerances of tests/test_pallas_scan.py), then at each of
+    the kernel's wider plans (SCAN_WIDTHS, d = 256, 384, 512: seeded normal
+    rows made on the card) at 65,536 rows x 1,024 queries and ragged;
  4. the kernel's time at the main path's shape (4096 queries x the 2^20-row
     store), beside its bound, the plain version and a library yardstick,
-    and the same comparison at that shape;
+    and the same comparison at that shape; then the same at d = 256, 384
+    and 512 (4096 x 2^20 x d: the kernels line's ``*_by_d`` entries);
  5. the 1M build, with the kernel's launch count on that path and its phase
     split (the build's NGT_TPU_BUILD_PROFILE marks, each closed by a
     synchronize), and the kernel's share of the scan phase;
  6. build quality: the first edge_size_for_creation edges of 2,000 sampled
     rows against exact ground truth (>= 99% agreement) and ``verify``;
- 7. the qg route of default properties: the first call of the 10,000
-    held-out queries at epsilon 0.1 with NGT_TPU_QG_PROFILE=1, split by
-    stage (quantize, block gather, seeds, traversal with its steps and its
-    share of done-check waits, re-rank, tail refine);
-    the route is sq8 with 48-edge blocks; recall@10 of a second call above
+ 7. the qg route of default properties over the first N_QG_Q held-out
+    queries: the first call at epsilon 0.1 with NGT_TPU_QG_PROFILE=1,
+    split by stage (quantize, block gather, seeds, traversal with its
+    steps and its share of done-check waits, re-rank, tail refine); the
+    route is sq8 with 48-edge blocks; recall@10 of a second call above
     QG_RECALL_FLOOR, and queries/s; the same call in one chunk: identical
     ids, and its queries/s; 1,000 self-queries; save and open through
     ``QuantizedGraphIndex``: identical ids;
@@ -178,8 +181,8 @@ codes, the IVFPQ mirror), and checks each result:
     shards of 1,000,000 rows on the one card, one process):
     ``ShardedIndex.build`` with its defaults (edge_size_for_creation 10,
     max_edges 48), the window-scan launches of each shard's build;
-    ``batch_search`` of the 10,000 held-out queries at epsilon 0.1,
-    recall@10 against the card's exact search over the 2M rows (floor
+    ``batch_search`` of the first N_SHARD_Q held-out queries at epsilon
+    0.1, recall@10 against the card's exact search over the 2M rows (floor
     SHARDED_RECALL_FLOOR); ``ShardedQG.from_sharded_index`` (codes and
     blocks built on the card, peak card memory) and 1,000 queries
     (SHARDED_QG_RECALL_FLOOR); ``ShardedIVFPQ`` over a port ``IVFPQIndex``
@@ -207,18 +210,45 @@ codes, the IVFPQ mirror), and checks each result:
     ``Index.search`` on the same opened index;
 27. each ``samples/torch`` script's ``main`` in-process on the card at
     SAMPLE_ARGS' sizes (their own checks: self-matches, the radius bound,
-    recall@10 above 0.9, ``verify``), with their seconds.
+    recall@10 above 0.9, ``verify``), with their seconds;
+28. bench.py's 4M arm (bench.py:768-877), after phase 27's data is freed:
+    bench's synthetic 5,000 x 128 base tiled 800 times plus
+    ``default_rng(4)`` noise of scale 12, rounded, clipped to 0..255 and
+    stored as uint8, 4,096 noisy base rows as queries; the card memory
+    reckoned beforehand; ``create(dimension=128,
+    edge_size_for_creation=40)`` and the bulk build with its phase split:
+    exactly ceil(4,000,000 / 4,096) = 977 window-scan launches at the
+    2^22-row capacity, edge agreement of 2,000 rows >= 0.99; ground truth
+    by ``batch_linear_search``; then under NGT_TPU_QG_BLOCK_GB=8 bench's
+    certified row (epsilon 0, ef 72, result_expansion 8) over all 4,096
+    queries: the sq8 route, eb 16 (8.6e9 bytes of blocks, past 2^31
+    elements), refine, the stage split, queries/s, peak card memory,
+    recall@10 above RECALL_FLOOR_4M; bench's HBM diet is skipped;
+29. bench.py's gist-960 arm (bench.py:480-560): ``gist_proxy(500_000,
+    960)``, 4,096 corpus rows as queries (``default_rng(29)``, self
+    stripped); ``create(dimension=960, edge_size_for_creation=40)`` and the
+    bulk build, whose d_pad of 1,024 is past the kernel's 512: the scan
+    takes the blocked route and launches the kernel 0 times; edge agreement
+    >= 0.99; under NGT_TPU_QG_BLOCK_GB=8.5 two of bench's rows (epsilon
+    0.02; epsilon 0 with ef 96 and result_expansion 10): mode, eb, refine,
+    recall@10, queries/s, the better recall above GIST_RECALL_FLOOR;
+30. the port's entry points (``ngt_tpu_torch/graft_entry.py``):
+    ``entry()`` on the card against ``entry(device="cpu")`` (ids on
+    >= 99.9% of entries, distances to 1e-4), then ``dryrun_multichip(8)``,
+    its 8 shards on the one card.
 
-To stay under 1,000 s beside phases 24-27 the smoke runs two earlier
-paths at a smaller depth: the u8 arm's qg recall over N_U8_Q held-out
-queries and phase 20 at N_ONNG_CHECK rows.
+To stay under 1,000 s the smoke runs four earlier paths at a smaller
+depth: the u8 arm's qg recall over N_U8_Q held-out queries, phase 20 at
+N_ONNG_CHECK rows, phase 7's three qg calls over N_QG_Q queries and phase
+24's ``batch_search`` over N_SHARD_Q.
 
 Phases 16-20 launch no hand kernel (pq4, k-means, IVFPQ and the ONNG
 programs are torch code; the ONNG is rebuilt from the ANNG that phase 12's
 build made through the window-scan kernel), so the kernels line lists the
 window-scan kernel's launches by path only; phases 21 and 23 launch it
 through the CLI's bulk build and the dedup's bulk append, phase 24 through
-each shard's build.  It prints a few dozen short lines as it goes, then one JSON line of the
+each shard's build, phase 28 through the 4M build.  It prints a few dozen
+short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
 Any failure raises, so the run exits non-zero and prints no result; so
 does a machine without a CUDA device.  Data is generated from a seed.
@@ -327,6 +357,33 @@ SAMPLE_ARGS = {
     "large_single_chip": ["--n", "100000", "--queries", "1024"],
     "ngtq_10m": ["--n", "1000000", "--queries", "1024", "--centroids", "1024"],
 }
+#: phases 3-4 at the kernel's wider shared-memory plans (row widths past 128)
+SCAN_WIDTHS = (256, 384, 512)
+#: depth cuts that make room for phases 28-30 under 1,000 s: phase 7's qg
+#: calls (the first, the second and the one-chunk call) run over the first
+#: N_QG_Q held-out queries, phase 24's batch_search over the first N_SHARD_Q
+N_QG_Q, N_SHARD_Q = 2048, 2000
+#: phase 28: bench.py's 4M arm (bench.py:768-877): bench's 5,000-row
+#: synthetic base tiled TILE_4M times plus normal noise (bench.py:786-790),
+#: N_4M_Q noisy base rows as queries (bench.py:792-795), its block budget
+#: (bench.py:826-830) and its certified (epsilon, ef, result_expansion) row
+N_BASE5K, TILE_4M, NOISE_4M, N_4M_Q = 5000, 800, 12.0, 4096
+N_4M = N_BASE5K * TILE_4M
+BLOCK_GB_4M = "8"
+ROW_4M = (0.0, 72, 8.0)
+#: recall@10 floor of that row: the first H100 run's 0.9851 (NVIDIA H100
+#: 80GB HBM3 at 700 W; PERF.md) less 1.5 points
+RECALL_FLOOR_4M = 0.9701
+#: phase 29: bench.py's gist-960 arm (bench.py:480-560): gist_proxy rows,
+#: N_GIST_Q corpus rows as queries (self stripped), its block budget
+#: (bench.py:535-538) and two of its (epsilon, ef, result_expansion) rows
+#: (0: the property stays)
+N_GIST, N_GIST_Q, GIST_DIM = 500_000, 4096, 960
+BLOCK_GB_GIST = "8.5"
+ROWS_GIST = ((0.02, 0, 0.0), (0.0, 96, 10.0))
+#: recall@10 floor of the better row: the first H100 run's 0.9512 (epsilon 0,
+#: ef 96; NVIDIA H100 80GB HBM3 at 700 W; PERF.md) less 1.5 points
+GIST_RECALL_FLOOR = 0.9362
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s, HBM
 #: bytes/s, and the float32 rate outside the tensor cores, the yardstick of
 #: the compares, sorts and index arithmetic of the ONNG programs (K10)
@@ -586,55 +643,46 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
         idx.graph._materialize()
         log(f"deferred adjacency download ({rows_down} rows of {idx.graph.e_max} ids + "
             f"distances): {time.time() - t0:.2f} s")
-        k = idx.prop.edge_size_for_creation
-        qsel = np.random.default_rng(2).choice(n_base, min(2000, n_base), replace=False)
-        gt_q, _ = idx.batch_linear_search(base[qsel], size=k + 1)
-        rows = idx.graph.nbr_ids[qsel + 1, :k] - 1
-        agree = float(np.mean([
-            len(set(r.tolist()) & set(g[g != s].tolist()[:k])) / k
-            for r, g, s in zip(rows, gt_q, qsel)
-        ]))
-        log(f"build quality: {agree:.5f} of the first {k} edges of {len(qsel)} "
-            "rows are exact k-NN edges")
-        if agree < 0.99:
-            raise AssertionError(f"edge agreement {agree:.5f} below 0.99")
+        edge_agreement(idx, base, "build quality", min(2000, n_base))
         problems = idx.verify()
         if problems:
             raise AssertionError(f"verify: {problems}")
         gt = ground_truth(idx, held)
         sel = np.random.default_rng(1).choice(n_base, min(1000, n_base), replace=False)
 
-        # 7. default properties: the quantized-graph route.  The first call
-        # quantizes and gathers the blocks; it runs with the stage timer on
+        # 7. default properties: the quantized-graph route, over the first
+        # N_QG_Q held-out queries (a depth cut).  The first call quantizes
+        # and gathers the blocks; it runs with the stage timer on
+        nq = min(N_QG_Q, n_held)
         os.environ["NGT_TPU_QG_PROFILE"] = "1"
         QG.last_profile.clear()
         graph_search.steps, graph_search.wait_s = 0, 0.0
         t0 = time.time()
-        idx.batch_search(held, size=10, epsilon=0.1)
+        idx.batch_search(held[:nq], size=10, epsilon=0.1)
         first_s = time.time() - t0
         del os.environ["NGT_TPU_QG_PROFILE"]
-        log(f"qg route, first call of {n_held} queries (quantize + blocks + search, "
+        log(f"qg route, first call of {nq} queries (quantize + blocks + search, "
             f"a synchronize closing each stage): {first_s:.2f} s; where the time went:")
-        qg_split(first_s, -(-n_held // 512))
+        qg_split(first_s, -(-nq // 512))
         log(f"device memory after the first qg call: {torch.cuda.memory_allocated() / 2**30:.2f} "
             f"GiB allocated (mirror, adjacency, codes, blocks and the store's linear-search "
             f"copy), peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         check_qg_route(idx, torch.int8)
         rec, found = recall_run(lambda q: idx.batch_search(q, size=10, epsilon=0.1),
-                                held, gt, "qg route", kind)
+                                held[:nq], gt[:nq], "qg route", kind)
         if rec < QG_RECALL_FLOOR:
             raise AssertionError(f"qg recall@10 {rec:.4f} below {QG_RECALL_FLOOR}")
         sq8_rec = rec
         # the same call in one chunk: the ids must not change, and the time
         # shows what the 512-query chunks cost
-        os.environ["NGT_TPU_QG_CHUNK"] = str(n_held)
+        os.environ["NGT_TPU_QG_CHUNK"] = str(nq)
         graph_search.steps = 0
         t0 = time.time()
-        whole = idx.batch_search(held, size=10, epsilon=0.1)[0]
+        whole = idx.batch_search(held[:nq], size=10, epsilon=0.1)[0]
         secs = time.time() - t0
         del os.environ["NGT_TPU_QG_CHUNK"]
-        log(f"qg route in one chunk of {n_held}: {n_held / secs:.0f} queries/s "
+        log(f"qg route in one chunk of {nq}: {nq / secs:.0f} queries/s "
             f"({secs:.2f} s, {graph_search.steps} steps); ids identical to the "
             f"512-query chunks: {bool(np.array_equal(whole, found))}")
         if not np.array_equal(whole, found):
@@ -1221,18 +1269,7 @@ def cosine_arm(dev, kind: str) -> int:
     if launches == 0:
         raise AssertionError("the Cosine build never launched the window-scan kernel")
 
-    k = idx.prop.edge_size_for_creation
-    qsel = np.random.default_rng(2).choice(N_GLOVE, 2000, replace=False)
-    gt_q, _ = idx.batch_linear_search(data[qsel], size=k + 1)
-    rows = idx.graph.nbr_ids[qsel + 1, :k] - 1
-    agree = float(np.mean([
-        len(set(r.tolist()) & set(g[g != s].tolist()[:k])) / k
-        for r, g, s in zip(rows, gt_q, qsel)
-    ]))
-    log(f"cosine arm: {agree:.5f} of the first {k} edges of {len(qsel)} rows are exact "
-        "cosine k-NN edges")
-    if agree < 0.99:
-        raise AssertionError(f"cosine edge agreement {agree:.5f} below 0.99")
+    edge_agreement(idx, data, "cosine arm")
     problems = idx.verify()
     if problems:
         raise AssertionError(f"cosine verify: {problems}")
@@ -1695,16 +1732,8 @@ def cli_arm(u: np.ndarray, tmp: str, dev, kind: str) -> tuple[int, str]:
     problems = idx.verify()
     if problems:
         raise AssertionError(f"verify after the CLI's create: {problems}")
-    k = 10
-    qsel = np.random.default_rng(2).choice(len(base), 2000, replace=False)
-    gt_q, _ = idx.batch_linear_search(base[qsel], size=k + 1)
-    rows = idx.graph.nbr_ids[qsel + 1, :k] - 1
-    agree = float(np.mean([len(set(r.tolist()) & set(g[g != s].tolist()[:k])) / k
-                           for r, g, s in zip(rows, gt_q, qsel)]))
-    log(f"CLI: the created index verifies; {agree:.5f} of the first {k} edges of "
-        f"{len(qsel)} rows are exact k-NN edges")
-    if agree < 0.99:
-        raise AssertionError(f"edge agreement {agree:.5f} below 0.99")
+    log("CLI: the created index verifies")
+    edge_agreement(idx, base, "CLI")
 
     # search, as a user runs it: a subprocess on the card
     out, secs = run_cli(["search", "-o", "e", "-n", "10", "-Q", str(N_CLI_Q), path, qtsv])
@@ -1986,15 +2015,17 @@ def sharded_arm(tmp: str, dev) -> int:
     if len(per_shard) != 2 or (dev.type == "cuda" and min(per_shard) == 0):
         raise AssertionError("a shard's build never launched the window-scan kernel")
 
-    # batch_search of the held-out queries, recall against the exact 2M search
+    # batch_search of the first N_SHARD_Q held-out queries (a depth cut),
+    # recall against the exact 2M search
+    ns = N_SHARD_Q
     graph_search.steps = 0
     t0 = time.time()
-    ids, dists = sidx.batch_search(held, size=10, epsilon=0.1)
+    ids, dists = sidx.batch_search(held[:ns], size=10, epsilon=0.1)
     secs["search"] = time.time() - t0
-    rec = recall_of(ids, gt)
+    rec = recall_of(ids, gt[:ns])
     sorted_ok = bool((np.diff(dists, axis=1) >= 0).all())
-    log(f"sharded: batch_search of {len(held)} queries at epsilon 0.1: recall@10 {rec:.4f}, "
-        f"{len(held) / secs['search']:.0f} queries/s ({secs['search']:.2f} s, "
+    log(f"sharded: batch_search of {ns} queries at epsilon 0.1: recall@10 {rec:.4f}, "
+        f"{ns / secs['search']:.0f} queries/s ({secs['search']:.2f} s, "
         f"{graph_search.steps} steps over both shards); rows sorted {sorted_ok}; peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if rec < SHARDED_RECALL_FLOOR or not sorted_ok:
@@ -2519,6 +2550,324 @@ def summary(out) -> str:
     return str(out)[:200]
 
 
+def scan_bound(b: int, n: int, d: int) -> tuple[float, str]:
+    """The least time (ms) one window-scan call of b queries over n rows of
+    width d could take on the card: its 2*b*n*d flop at the bf16 peak or
+    its bytes (q, x and ss read once, the [b, n/128] outputs written once)
+    at the HBM rate, whichever is larger, and which one it is."""
+    flops = 2.0 * b * n * d
+    nbytes = b * d * 2 + n * d * 2 + n * 4 + b * (n // 128) * 8
+    by_ops = flops / PEAK_BF16 >= nbytes / PEAK_BYTES
+    return max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3, ("operations" if by_ops
+                                                                else "bytes")
+
+
+def scan_widths(WS, dev, kind: str) -> dict:
+    """Phases 3 and 4 at the kernel's wider plans (SCAN_WIDTHS): at each
+    width the kernel against its plain version on 65,536 rows x 1,024
+    queries and on a ragged case (100 queries, 37 windows), then timed at
+    the main path's shape, 4,096 queries x 2^20 rows, beside its bound, the
+    plain version and the library yardstick.  Rows are seeded normal bf16
+    values made on the card.  Returns {d: {err, ms, plain_ms, library_ms,
+    bound_ms, bound_by}}."""
+    out = {}
+    gen = torch.Generator(device=dev)
+    for d in SCAN_WIDTHS:
+        gen.manual_seed(7 + d)
+        xs = torch.randn((65536, d), generator=gen, device=dev)
+        qs = xs[:1024] + 0.1 * torch.randn((1024, d), generator=gen, device=dev)
+        ss = (xs * xs).sum(1)
+        err = compare_scan(WS, qs.bfloat16(), xs.bfloat16(), ss, f"65536 x {d}, 1024 queries")
+        compare_scan(WS, qs[:100].bfloat16(), xs[: 128 * 37].bfloat16(), ss[: 128 * 37],
+                     f"ragged at d={d}: 100 queries, 37 windows")
+        del xs, qs, ss
+        n = 1 << 20
+        x16 = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+        sp = (x16.float() ** 2).sum(1)
+        q16 = x16[1:4097].contiguous()
+        err = max(err, compare_scan(WS, q16, x16, sp, f"main path shape 4096 x {n} x {d}"))
+        ms = time_ms(lambda: WS.window_scan(q16, x16, sp))
+        plain_ms = time_ms(lambda: WS.window_scan_plain(q16, x16, sp))
+        library_ms = time_ms(lambda: library_scan(q16, x16, sp))
+        bound_ms, bound_by = scan_bound(q16.shape[0], n, d)
+        log(f"window_scan at 4096 x {n} x {d} on {kind}: {ms:.3f} ms "
+            f"({2.0 * 4096 * n * d / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} ms by "
+            f"{bound_by}, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms")
+        out[d] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                      bound_ms=bound_ms, bound_by=bound_by)
+        del x16, sp, q16
+        torch.cuda.empty_cache()
+    return out
+
+
+def edge_agreement(idx, data: np.ndarray, what: str, n_rows: int = 2000) -> float:
+    """Share of the first edge_size_for_creation edges of ``n_rows`` sampled
+    rows (``default_rng(2)``) that are exact k-NN edges (the card's linear
+    search); raises below 0.99."""
+    k = idx.prop.edge_size_for_creation
+    qsel = np.random.default_rng(2).choice(len(data), n_rows, replace=False)
+    gt_q, _ = idx.batch_linear_search(data[qsel].astype(np.float32), size=k + 1)
+    rows = idx.graph.nbr_ids[qsel + 1, :k] - 1
+    agree = float(np.mean([
+        len(set(r.tolist()) & set(g[g != s].tolist()[:k])) / k
+        for r, g, s in zip(rows, gt_q, qsel)
+    ]))
+    log(f"{what}: {agree:.5f} of the first {k} edges of {n_rows} rows are exact k-NN edges")
+    if agree < 0.99:
+        raise AssertionError(f"{what}: edge agreement {agree:.5f} below 0.99")
+    return agree
+
+
+def bench_base5k() -> np.ndarray:
+    """bench.py::load_dataset's synthetic 5,000 x 128 base (bench.py:27-28),
+    which it takes where the SIFT file is absent."""
+    return np.random.default_rng(0).normal(size=(N_BASE5K, 128)).astype(np.float32) * 20 + 100
+
+
+def rows_4m(base5k: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """bench.py's 4M corpus as uint8 (bench.py:786-790: the base tiled,
+    ``default_rng(4)`` normal noise of scale 12, rounded, clipped to
+    0..255) and its queries (bench.py:792-795).  The noise is drawn in
+    slabs, which gives the numbers of one draw."""
+    g = np.random.default_rng(4)
+    data = np.tile(base5k, (TILE_4M, 1))
+    slab = 1 << 19
+    for s in range(0, len(data), slab):
+        e = min(s + slab, len(data))
+        data[s:e] += g.normal(scale=NOISE_4M, size=(e - s, data.shape[1])).astype(np.float32)
+    np.rint(data, out=data)
+    np.clip(data, 0, 255, out=data)
+    g2 = np.random.default_rng(5)
+    queries = base5k[g2.choice(len(base5k), N_4M_Q, replace=True)] + g2.normal(
+        scale=NOISE_4M, size=(N_4M_Q, 128)).astype(np.float32)
+    return data.astype(np.uint8), queries
+
+
+def gist_proxy(n: int, d: int = GIST_DIM, seed: int = SEED) -> np.ndarray:
+    """bench.py's gist-960-shaped corpus (bench.py:449-478): its recipe is
+    ``sift_proxy``'s at d = 960 (power-law spectrum i^-0.4 under a random
+    rotation, Zipf(1.05) sizes of 2,048 clusters, shifted non-negative,
+    rows shuffled), so the same seed gives the same rows."""
+    return sift_proxy(n, d=d, seed=seed, kc=2048)
+
+
+def qg_row(idx, queries: np.ndarray, size: int, row: tuple, what: str, kind: str):
+    """One (epsilon, ef, result_expansion) row of bench.py's search ladders
+    on the index's default route, with the stage timer on; result_expansion
+    0 leaves the property.  Returns (ids, seconds, the blocks' eb and
+    element count), read under the caller's block budget."""
+    from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.quant import qgraph as QG
+
+    eps, ef, rexp = row
+    old = idx.prop.result_expansion
+    if rexp:
+        idx.prop.result_expansion = rexp
+    restore = stage_env(NGT_TPU_QG_PROFILE="1")
+    QG.last_profile.clear()
+    graph_search.steps, graph_search.wait_s = 0, 0.0
+    try:
+        t0 = time.time()
+        ids, _ = idx.batch_search(queries, size=size, epsilon=eps, ef=ef)
+        secs = time.time() - t0
+    finally:
+        restore()
+        idx.prop.result_expansion = old
+    once = sum(QG.last_profile.get(st, 0.0) for st in ("quantize", "blocks"))
+    qg = idx._qg
+    if qg is None:
+        raise AssertionError(f"{what}: the search did not take the qg route")
+    blocks, nbr_eb = qg._dev_blocks()
+    eb = nbr_eb.shape[1]
+    log(f"{what}: epsilon {eps}, ef {ef}, result_expansion {rexp or old}: qg mode {qg.mode}, "
+        f"codes {str(qg._dev_codes().dtype)}, eb {eb} of {idx.graph.e_max} (blocks "
+        f"{tuple(blocks.shape)} {str(blocks.dtype)}, {blocks.numel()} elements), refine "
+        f"{qg._resolve_refine(idx.graph.e_max, eb)}; {len(queries) / secs:.0f} queries/s "
+        f"({secs:.2f} s, {graph_search.steps} steps; {len(queries) / max(secs - once, 1e-9):.0f} "
+        f"queries/s without the one-time quantize and block gather) on {kind}")
+    qg_split(secs, -(-len(queries) // int(os.environ.get("NGT_TPU_QG_CHUNK", "512"))))
+    return ids, secs, eb, blocks.numel()
+
+
+def bench_4m_arm(dev, kind: str) -> int:
+    """Phase 28: bench.py's 4M arm, the large-single-chip regime (see the
+    module docstring).  Returns the window-scan launches of its build."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.graph import build as TB
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.ops import window_scan as WS
+
+    t0 = time.time()
+    data, queries = rows_4m(bench_base5k())
+    log(f"4M arm: {len(data)} x 128 uint8 rows (bench.py's recipe) and {len(queries)} "
+        f"queries in {time.time() - t0:.1f} s")
+    # card memory, reckoned before the build at the 2^22-row capacity: the
+    # build's f32 rows, the u8 mirror (the codes are that tensor), the
+    # adjacency (int32 ids + f32 distances of max(64, 2 x 40) columns, as
+    # create sets max_edges) and the search's eb 16 blocks of 128 bytes
+    cap, e_max = 1 << 22, max(64, 2 * 40)
+    reckon = {"f32 rows": cap * 128 * 4, "u8 mirror": cap * 128,
+              "adjacency": cap * e_max * 8, "blocks": cap * 16 * 128}
+    log("4M arm: reckoned card memory (GiB): " + ", ".join(
+        f"{k} {v / 2**30:.2f}" for k, v in reckon.items())
+        + f"; sum {sum(reckon.values()) / 2**30:.2f}")
+    torch.cuda.reset_peak_memory_stats()
+    restore = stage_env(NGT_TPU_BUILD_PROFILE="1")
+    WS.window_scan.launches = 0
+    try:
+        t0 = time.time()
+        idx = ngt_tpu_torch.create(None, dimension=128, edge_size_for_creation=40, device=dev)
+        idx.batch_insert(data.astype(np.float32), build=True)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+    finally:
+        restore()
+    launches = WS.window_scan.launches
+    want = -(-N_4M // 4096)
+    log(f"4M arm: build of {N_4M} x 128 (edge_size_for_creation 40): {build_s:.1f} s "
+        f"({N_4M / build_s:.0f} rows/s); capacity {idx.store._x.shape[0]}, e_max "
+        f"{idx.graph.e_max}; window_scan launches {launches} ({want} expected); peak card "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("4M arm: build phases (s): " + ", ".join(
+        f"{label} {sec:.3f}" for label, sec in TB.last_profile))
+    if launches != want:
+        raise AssertionError(f"4M build: {launches} window-scan launches, {want} expected")
+    edge_agreement(idx, data, "4M arm")
+    t0 = time.time()
+    gt = ground_truth(idx, queries)
+    log(f"4M arm: ground truth (batch_linear_search, size 10): {time.time() - t0:.1f} s")
+    del data
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    restore = stage_env(NGT_TPU_QG_BLOCK_GB=BLOCK_GB_4M)
+    try:
+        found, _, eb, elems = qg_row(idx, queries, 10, ROW_4M, f"4M arm, "
+                                        f"NGT_TPU_QG_BLOCK_GB {BLOCK_GB_4M}", kind)
+    finally:
+        restore()
+    rec = BF.recall_at_k(found, gt, 10)
+    log(f"4M arm: recall@10 {rec:.4f} at epsilon {ROW_4M[0]}, ef {ROW_4M[1]}, "
+        f"result_expansion {ROW_4M[2]} (floor {RECALL_FLOOR_4M}); peak card memory of the "
+        f"search {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after it")
+    # sq8 blocks of eb 16 at the 2^22-row capacity: 8.6e9 elements, past
+    # what int32 offsets can address
+    if idx._qg.mode != "sq8" or eb != 16 or elems <= 2**31:
+        raise AssertionError(f"4M arm: qg mode {idx._qg.mode}, eb {eb}, {elems} block "
+                             "elements; sq8 at eb 16 past 2^31 elements expected")
+    if rec < RECALL_FLOOR_4M:
+        raise AssertionError(f"4M arm: recall@10 {rec:.4f} below {RECALL_FLOOR_4M}")
+    idx.close()
+    del idx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def gist_arm(dev, kind: str) -> None:
+    """Phase 29: bench.py's gist-960 arm (see the module docstring)."""
+    import ngt_tpu_torch
+    from ngt_tpu_torch.graph import build as TB
+    from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.ops import window_scan as WS
+
+    t0 = time.time()
+    data = gist_proxy(N_GIST)
+    qi = np.random.default_rng(29).choice(N_GIST, N_GIST_Q, replace=False)
+    queries = data[qi]
+    log(f"gist-960 arm: gist_proxy {N_GIST} x {GIST_DIM} in {time.time() - t0:.1f} s, "
+        f"{N_GIST_Q} corpus rows as queries")
+    # the build's scan route, seen where build_bulk calls the bulk k-NN
+    routes = []
+    bulk = BF.fast_knn_l2_bulk
+
+    def seen(*args, **kwargs):
+        routes.append(kwargs.get("scan_impl"))
+        return bulk(*args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    restore = stage_env(NGT_TPU_BUILD_PROFILE="1")
+    WS.window_scan.launches = 0
+    BF.fast_knn_l2_bulk = seen
+    try:
+        t0 = time.time()
+        idx = ngt_tpu_torch.create(None, dimension=GIST_DIM, edge_size_for_creation=40,
+                                   device=dev)
+        idx.batch_insert(data, build=True)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+    finally:
+        BF.fast_knn_l2_bulk = bulk
+        restore()
+    launches = WS.window_scan.launches
+    log(f"gist-960 arm: build of {N_GIST} x {GIST_DIM} (d_pad {idx.store.d_pad}, "
+        f"edge_size_for_creation 40): {build_s:.1f} s; scan routes {sorted(set(routes))} in "
+        f"{len(routes)} calls; window_scan launches {launches}; peak card memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("gist-960 arm: build phases (s): " + ", ".join(
+        f"{label} {sec:.3f}" for label, sec in TB.last_profile))
+    if launches != 0 or set(routes) != {"blocked"}:
+        raise AssertionError(f"gist-960 build: routes {routes}, {launches} launches; the "
+                             "blocked route and no window-scan launch expected")
+    edge_agreement(idx, data, "gist-960 arm")
+    t0 = time.time()
+    gt = strip_self(np.concatenate([
+        idx.batch_linear_search(queries[i : i + 1024], size=11)[0]
+        for i in range(0, N_GIST_Q, 1024)
+    ]), qi)
+    log(f"gist-960 arm: ground truth (batch_linear_search, size 11, self stripped): "
+        f"{time.time() - t0:.1f} s")
+    del data
+    torch.cuda.empty_cache()
+    recs = []
+    restore = stage_env(NGT_TPU_QG_BLOCK_GB=BLOCK_GB_GIST)
+    try:
+        for row in ROWS_GIST:
+            torch.cuda.reset_peak_memory_stats()
+            found, _, eb, _ = qg_row(idx, queries, 11, row, f"gist-960 arm, "
+                                     f"NGT_TPU_QG_BLOCK_GB {BLOCK_GB_GIST}", kind)
+            if idx._qg.mode != "sq8" or eb != 17:
+                raise AssertionError(f"gist-960 arm: qg mode {idx._qg.mode}, eb {eb}; sq8 "
+                                     "at eb 17 expected")
+            recs.append(BF.recall_at_k(strip_self(found, qi), gt, 10))
+            log(f"gist-960 arm: recall@10 {recs[-1]:.4f}; peak card memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finally:
+        restore()
+    log(f"gist-960 arm: better recall@10 {max(recs):.4f} (floor {GIST_RECALL_FLOOR})")
+    if max(recs) < GIST_RECALL_FLOOR:
+        raise AssertionError(f"gist-960 arm: recall@10 {max(recs):.4f} below {GIST_RECALL_FLOOR}")
+    idx.close()
+    del idx
+    torch.cuda.empty_cache()
+
+
+def entries_arm(dev) -> None:
+    """Phase 30: the port's entry points on the card: ``entry()`` against
+    the same call with device="cpu" (ids on >= 99.9% of entries, distances
+    to 1e-4 where the ids agree), then ``dryrun_multichip(8)``, whose 8
+    shards share the card."""
+    from ngt_tpu_torch import graft_entry as GE
+
+    fn, args = GE.entry()
+    if any(a.device.type != dev.type for a in args):
+        raise AssertionError("entry() did not put its arguments on the card")
+    gi, gd = fn(*args)
+    torch.cuda.synchronize()
+    fn_c, args_c = GE.entry(device="cpu")
+    ci, cd = fn_c(*args_c)
+    gi, gd = gi.cpu().numpy(), gd.cpu().numpy()
+    same = gi == ci.numpy()
+    close = bool(np.allclose(gd[same], cd.numpy()[same], rtol=0, atol=1e-4))
+    log(f"entry(): ids {gi.shape} on {dev.type} agree with the CPU on {same.mean():.6f} of "
+        f"entries; distances within 1e-4: {close}")
+    if same.mean() < 0.999 or not close:
+        raise AssertionError("entry() on the card disagrees with the CPU")
+    t0 = time.time()
+    GE.dryrun_multichip(8)
+    torch.cuda.synchronize()
+    log(f"dryrun_multichip(8) on {dev.type}: {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -2604,16 +2953,17 @@ def main() -> int:
     plain_ms = time_ms(lambda: WS.window_scan_plain(q16, x16, sp))
     library_ms = time_ms(lambda: library_scan(q16, x16, sp))
     b, n = q16.shape[0], x16.shape[0]
-    flops = 2.0 * b * n * DIM
-    nbytes = b * DIM * 2 + n * DIM * 2 + n * 4 + b * (n // 128) * 8
-    bound_ms = max(flops / PEAK_BF16, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16 >= nbytes / PEAK_BYTES else "bytes"
+    bound_ms, bound_by = scan_bound(b, n, DIM)
     log(f"window_scan at 4096 x {cap} x {DIM} on {kind}: {ms:.3f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} ms by {bound_by}, "
-        f"plain {plain_ms:.3f} ms, library {library_ms:.3f} ms")
+        f"({2.0 * b * n * DIM / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.3f} ms by "
+        f"{bound_by}, plain {plain_ms:.3f} ms, library {library_ms:.3f} ms")
     log("window_scan back to back: " + clocks_under(lambda: WS.window_scan(q16, x16, sp)))
     del x, v, x16, sp, q16
     torch.cuda.empty_cache()
+    # 3-4 at the wider plans
+    widths = {DIM: dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bound_by=bound_by)}
+    widths.update(scan_widths(WS, dev, kind))
 
     launches, append_launches, live_s = drive(base, held, extra, dev, kind, ms)
     torch.cuda.empty_cache()
@@ -2668,8 +3018,20 @@ def main() -> int:
             f"{k} {v:.1f}" for k, v in sample_s.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
-    # 28. kernels, device, result
+    # 28-30. bench.py's 4M and gist-960 arms, the entry points
+    t0 = time.time()
+    launches_4m = bench_4m_arm(dev, kind)
+    log(f"phase 28 (the 4M arm): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    gist_arm(dev, kind)
+    log(f"phase 29 (the gist-960 arm): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    entries_arm(dev)
+    log(f"phase 30 (the entry points): {time.time() - t0:.1f} s")
+
+    # 31. kernels, device, result
     # the last three lines go out bare: the kernels line, the nvidia-smi
     # line and the result line are read by machines
     log(f"total {time.time() - t_start:.1f} s")
@@ -2679,7 +3041,7 @@ def main() -> int:
         "source": "ngt_tpu_torch/csrc/window_scan.cu",
         "replaces": "ngt_tpu/ops/pallas_scan.py:88",
         "launches": launches + append_launches + cli_launches + dedup_launches
-        + sharded_launches,
+        + sharded_launches + launches_4m,
         "launches_by_path": {"main path: build": launches,
                              "main path: bulk append": append_launches,
                              "u8 arm: build": u8_launches,
@@ -2687,7 +3049,9 @@ def main() -> int:
                              "ONNG arm: build (phase 12's index)": cos_launches,
                              "CLI: create (phase 21)": cli_launches,
                              "dedup: bulk append (phase 23)": dedup_launches,
-                             "sharded: build (phase 24)": sharded_launches},
+                             "sharded: build (phase 24)": sharded_launches,
+                             "4M arm: build (phase 28)": launches_4m,
+                             "gist-960 arm: build, blocked route (phase 29)": 0},
         "matched": True,
         "max_abs_err": err,
         "ms": ms,
@@ -2695,6 +3059,12 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "max_abs_err_by_d": {str(d): w["err"] for d, w in widths.items()},
+        "ms_by_d": {str(d): w["ms"] for d, w in widths.items()},
+        "plain_ms_by_d": {str(d): w["plain_ms"] for d, w in widths.items()},
+        "bound_ms_by_d": {str(d): w["bound_ms"] for d, w in widths.items()},
+        "bound_by_d": {str(d): w["bound_by"] for d, w in widths.items()},
+        "library_ms_by_d": {str(d): w["library_ms"] for d, w in widths.items()},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,34 @@ def test_fast_knn_l2_bulk_matches_jax(route):
     assert not np.isin(ti, np.arange(300, 340)).any()
 
 
+def test_fast_knn_l2_bulk_blocked_gist_width_matches_jax():
+    """The blocked route at a padded row width of 1,024 (960-wide rows, the
+    gist-960 arm's, past the window kernel's 512), over several corpus
+    blocks and query blocks, with the build's k + 1 and kc = 2(k + 1)."""
+    rng = np.random.default_rng(11)
+    n, d, d_pad, k, b = 384, 960, 1024, 41, 192
+    x, valid, _ = _store_like(rng, n, d)
+    x = np.pad(x, ((0, 0), (0, d_pad - d)))
+    sq = (x ** 2).sum(1).astype(np.float32)
+    q_ids = np.arange(1, b + 1, dtype=np.int32)
+    kw = dict(k=k, kc=2 * k, qblock=96, block=128)
+    ji, jd = JBF.fast_knn_l2_bulk(
+        jnp.asarray(q_ids), jnp.asarray(x), jnp.asarray(valid), jnp.asarray(sq),
+        bf16_tile=True, scan_impl="xla", **kw,
+    )
+    ti, td = TBF.fast_knn_l2_bulk(
+        torch.from_numpy(q_ids), torch.from_numpy(x), torch.from_numpy(valid),
+        torch.from_numpy(sq), scan_impl="blocked", **kw,
+    )
+    ji, jd, ti, td = np.asarray(ji), np.asarray(jd), ti.numpy(), td.numpy()
+    assert ti.shape == (b, k)
+    assert (ti == ji).all(axis=1).mean() >= 0.999
+    same = ti == ji
+    np.testing.assert_allclose(td[same], jd[same], rtol=1e-5, atol=1e-5)
+    assert (ti[:, 0] == q_ids).all()
+    assert not np.isin(ti, np.arange(300, 340)).any()
+
+
 def test_linear_search_matches_jax():
     rng = np.random.default_rng(9)
     x, valid, sq = _store_like(rng, 3000, 128)

@@ -153,6 +153,17 @@ def test_block_sizing_matches_jax(monkeypatch):
     f = fake(1 << 20, 128)
     assert TQ.pick_mode(1 << 20, 128) == "sq8"
     assert TQ._effective_block_edges(f) == 48 and TQ._resolve_refine(f, 64, 48) == 16
+    # bench.py's budgets of its 4M arm (8 GiB at a 2^22-row capacity: sq8,
+    # eb 16, 8.6e9 bytes of blocks) and its gist-960 arm (8.5 GiB at 2^19
+    # rows of 1,024 padded columns: eb 17)
+    for gb, cap, d_pad, eb_want in (("8", 1 << 22, 128, 16), ("8.5", 1 << 19, 1024, 17)):
+        monkeypatch.setenv("NGT_TPU_QG_BLOCK_GB", gb)
+        assert TQ.pick_mode(cap, d_pad) == JQ.pick_mode(cap, d_pad) == "sq8"
+        for e_max in (64, 96):
+            f = fake(cap, d_pad, e_max=e_max)
+            eb = TQ._effective_block_edges(f)
+            assert eb == JQ._effective_block_edges(f) == eb_want
+            assert TQ._resolve_refine(f, e_max, eb) == JQ._resolve_refine(f, e_max, eb)
 
 
 @pytest.mark.parametrize("codes,env,prop,kw", [
