@@ -535,9 +535,10 @@ def library_scan(q16, x16, ss, chunk: int = 65536):
 
 def qg_split(wall_s: float, n_chunks: int) -> None:
     """Print where the time of one qg call made with NGT_TPU_QG_PROFILE=1
-    went: seconds per stage (quant/qgraph.py ``last_profile``, each stage
-    closed by a synchronize) and the traversal's steps and done-check
-    waits (graph/search.py counters)."""
+    went: seconds per stage (quant/qgraph.py ``last_profile``) and the
+    traversal's steps and done-check waits (graph/search.py's count and
+    the tracer's ``traverse.wait`` records)."""
+    from ngt_tpu_torch import trace
     from ngt_tpu_torch.graph.search import graph_search
     from ngt_tpu_torch.quant import qgraph as QG
 
@@ -546,10 +547,11 @@ def qg_split(wall_s: float, n_chunks: int) -> None:
         log(f"  {label}: " + ("not run" if sec is None else
                               f"{sec * 1e3:.1f} ms ({100 * sec / wall_s:.1f}% of the call)"))
     trav = QG.last_profile.get("traverse", 0.0)
+    wait = sum(r.value for r in trace.records() if r.name == "traverse.wait")
     log(f"  traversal: {graph_search.steps} steps over {n_chunks} chunks "
         f"({1e3 * trav / max(graph_search.steps, 1):.3f} ms a step); the done checks "
-        f"wait {graph_search.wait_s * 1e3:.1f} ms of its {trav * 1e3:.1f} ms "
-        f"({100 * graph_search.wait_s / max(trav, 1e-9):.1f}%)")
+        f"wait {wait * 1e3:.1f} ms of its {trav * 1e3:.1f} ms "
+        f"({100 * wait / max(trav, 1e-9):.1f}%)")
 
 
 def self_queries(search, base, sel, what: str) -> np.ndarray:
@@ -605,6 +607,7 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
     removals on the same index) and their checks.  Returns the window-scan
     launches of the build and of the bulk append, and phase 14's seconds."""
     import ngt_tpu_torch
+    from ngt_tpu_torch import trace
     from ngt_tpu_torch.graph import build as TB
     from ngt_tpu_torch.ops import window_scan as WS
     from ngt_tpu_torch.graph.search import graph_search
@@ -656,7 +659,8 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
         nq = min(N_QG_Q, n_held)
         os.environ["NGT_TPU_QG_PROFILE"] = "1"
         QG.last_profile.clear()
-        graph_search.steps, graph_search.wait_s = 0, 0.0
+        graph_search.steps = 0
+        trace.clear()
         t0 = time.time()
         idx.batch_search(held[:nq], size=10, epsilon=0.1)
         first_s = time.time() - t0
@@ -751,7 +755,7 @@ def live_index(idx, base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, 
     serves the default route.  Returns the window-scan launches of the
     bulk append and the phase's seconds."""
     import ngt_tpu_torch
-    from ngt_tpu_torch import native
+    from ngt_tpu_torch import native, trace
     from ngt_tpu_torch.graph import build as TB
     from ngt_tpu_torch.graph.search import graph_search
     from ngt_tpu_torch.ops import bruteforce as BF
@@ -838,7 +842,8 @@ def live_index(idx, base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, 
     os.environ["NGT_TPU_QG_PROFILE"] = "1"
     os.environ["NGT_TPU_QG_CHUNK"] = str(len(held))
     QG.last_profile.clear()
-    graph_search.steps, graph_search.wait_s = 0, 0.0
+    graph_search.steps = 0
+    trace.clear()
     t0 = time.time()
     found, _ = idx.batch_search(held, size=10, epsilon=0.1)
     secs = time.time() - t0
@@ -914,6 +919,7 @@ def pq4_route(path: str, base: np.ndarray, held: np.ndarray, gt: np.ndarray, sel
     truth above PQ4_RECALL_FLOOR; save + open through
     QuantizedGraphIndex: identical ids."""
     import ngt_tpu_torch
+    from ngt_tpu_torch import trace
     from ngt_tpu_torch.graph.search import graph_search
     from ngt_tpu_torch.ops import bruteforce as BF
     from ngt_tpu_torch.quant import qgraph as QG
@@ -926,7 +932,8 @@ def pq4_route(path: str, base: np.ndarray, held: np.ndarray, gt: np.ndarray, sel
         idx.prop.search_mode = "auto"   # phase 9 saved phase 8's "exact"
         log(f"pq4 route: open_index of phase 9's save: {time.time() - t0:.1f} s")
         QG.last_profile.clear()
-        graph_search.steps, graph_search.wait_s = 0, 0.0
+        graph_search.steps = 0
+        trace.clear()
         t0 = time.time()
         found, _ = idx.batch_search(held, size=10, epsilon=0.1)
         secs = time.time() - t0
@@ -1241,6 +1248,7 @@ def cosine_arm(dev, kind: str) -> int:
     """Phase 12: the 1M Cosine arm of bench.py's angular protocol.  Returns
     the window-scan launches of its build."""
     import ngt_tpu_torch
+    from ngt_tpu_torch import trace
     from ngt_tpu_torch.graph import build as TB
     from ngt_tpu_torch.graph.search import graph_search
     from ngt_tpu_torch.ops import bruteforce as BF
@@ -1281,7 +1289,8 @@ def cosine_arm(dev, kind: str) -> int:
     # the qg route of default properties at epsilon 0.02, stage timer on
     os.environ["NGT_TPU_QG_PROFILE"] = "1"
     QG.last_profile.clear()
-    graph_search.steps, graph_search.wait_s = 0, 0.0
+    graph_search.steps = 0
+    trace.clear()
     t0 = time.time()
     found, _ = idx.batch_search(queries, size=11, epsilon=0.02)
     secs = time.time() - t0
@@ -2656,6 +2665,7 @@ def qg_row(idx, queries: np.ndarray, size: int, row: tuple, what: str, kind: str
     on the index's default route, with the stage timer on; result_expansion
     0 leaves the property.  Returns (ids, seconds, the blocks' eb and
     element count), read under the caller's block budget."""
+    from ngt_tpu_torch import trace
     from ngt_tpu_torch.graph.search import graph_search
     from ngt_tpu_torch.quant import qgraph as QG
 
@@ -2665,7 +2675,8 @@ def qg_row(idx, queries: np.ndarray, size: int, row: tuple, what: str, kind: str
         idx.prop.result_expansion = rexp
     restore = stage_env(NGT_TPU_QG_PROFILE="1")
     QG.last_profile.clear()
-    graph_search.steps, graph_search.wait_s = 0, 0.0
+    graph_search.steps = 0
+    trace.clear()
     try:
         t0 = time.time()
         ids, _ = idx.batch_search(queries, size=size, epsilon=eps, ef=ef)

@@ -40,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from ngt_tpu_torch import native
+from ngt_tpu_torch import native, trace
 from ngt_tpu_torch.graph.search import graph_search, wrap_hash_bits
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.ops import bruteforce as BF
@@ -67,33 +67,39 @@ last_profile: list[tuple[str, float]] = []
 
 
 class _Marks:
-    """``mark(label)`` closes a build phase when NGT_TPU_BUILD_PROFILE=1 (the
-    reference's switch): it synchronizes the card, so each phase holds its
-    own device work, and appends the phase's seconds to ``profile``
-    (``last_profile`` unless given), which it empties first.  A no-op
-    otherwise."""
+    """``mark(label)`` closes a phase when the tracer's build family is on
+    (NGT_TPU_BUILD_PROFILE=1, the reference's switch): the tracer's record
+    ``<prefix><label>`` spans from the previous mark (or the marks' start)
+    to now, on a card the device timeline between two events.  ``profile``
+    (``last_profile`` unless given) is emptied at the start; ``finish``
+    waits for the last mark and writes every phase's seconds to it, in
+    order.  A no-op with the family off."""
 
-    def __init__(self, dev: torch.device, profile: list | None = None):
-        self.on = os.environ.get("NGT_TPU_BUILD_PROFILE", "") == "1"
-        self.dev = dev
+    def __init__(self, dev: torch.device, profile: list | None = None,
+                 prefix: str = "build."):
+        self.on = trace.on(trace.BUILD)
+        self.dev, self.prefix = dev, prefix
         self.profile = last_profile if profile is None else profile
         if self.on:
             self.profile.clear()
-            self.t = time.perf_counter()
+            self.recs = []
+            self.last = trace.stamp(dev)
 
     def __call__(self, label: str) -> None:
+        if self.on:
+            rec, self.last = trace.interval(self.prefix + label, self.last, self.dev)
+            self.recs.append(rec)
+
+    def finish(self, line: str = "") -> None:
+        """Fills ``profile``; ``line`` names the phases' line on standard
+        error (``# <line> profile: ...``)."""
         if not self.on:
             return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.profile.append((label, now - self.t))
-        self.t = now
-
-    def report(self) -> None:
-        if self.on:
-            print("# build_bulk profile: " + " ".join(
-                f"{label}={sec:.2f}s" for label, sec in last_profile), file=sys.stderr)
+        trace.resolve()
+        self.profile[:] = [(r.name[len(self.prefix):], r.value) for r in self.recs]
+        if line:
+            print(f"# {line} profile: " + " ".join(
+                f"{label}={sec:.2f}s" for label, sec in self.profile), file=sys.stderr)
 
 
 #: metrics whose scaled-L2 ranking over the stored vectors is monotone with
@@ -623,7 +629,7 @@ def build_bulk(
     else:
         mirror.sync_full()
     mark("mirror")
-    mark.report()
+    mark.finish("build_bulk")
     return mirror
 
 

@@ -52,8 +52,8 @@ DEV_PAIRS_MIN = 1 << 21
 CHUNK_ELEMS = 1 << 26
 
 #: phase times of the last ``GraphOptimizer.execute`` or ``adjust_paths``
-#: with NGT_TPU_BUILD_PROFILE=1: [(phase, seconds)], each phase closed by a
-#: synchronize
+#: with NGT_TPU_BUILD_PROFILE=1: [(phase, seconds)], the tracer's
+#: ``reconstruct.<phase>`` marks (``graph/build.py::_Marks``)
 last_profile: list[tuple[str, float]] = []
 
 _LOW32 = 0xFFFFFFFF
@@ -429,7 +429,8 @@ def adjust_paths(graph: GraphStore, n: int, min_edges: int = 0, block: int = 512
     on the host.  ``marks``: the caller's phase marks (GraphOptimizer's),
     else its own into ``last_profile``."""
     dev = torch.device(device)
-    marks = marks or _Marks(dev, last_profile)
+    own = marks is None
+    marks = marks or _Marks(dev, last_profile, "reconstruct.")
     nbr, dist, deg = _rows_dev(graph, n, dev)
     e = int(deg.max()) if n else 0
     if e == 0:
@@ -448,6 +449,8 @@ def adjust_paths(graph: GraphStore, n: int, min_edges: int = 0, block: int = 512
                                dist_from=(nbr, dist, deg))
     out = _out_graph(graph, n, *rows)
     marks("rows")
+    if own:
+        marks.finish()
     return out
 
 

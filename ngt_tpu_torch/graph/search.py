@@ -15,8 +15,10 @@
 
 The loop is a Python loop over steps; each step is a handful of batched
 tensor ops and the loop ends at ``max_iters`` or when every query is done,
-which it checks once per step (the check waits for the device; the
-function counts its steps and the seconds of those waits).  Row mode
+which it checks once per step (the check waits for the device).  The
+function counts its steps (``graph_search.steps``); with the tracer's
+search family on (``ngt_tpu_torch/trace.py``) it also counts each query's
+own steps and splits the steps' host time at the done check.  Row mode
 scores gathered object rows; block mode scores one neighbor block row per
 expanded node, the quantized graph's traversal (``quant/qgraph.py``).
 """
@@ -30,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ngt_tpu_torch import trace
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops.select import sort_lex
 from ngt_tpu_torch.seeds import top_seeds
@@ -66,6 +69,10 @@ class SearchResult(NamedTuple):
     visit_count: torch.Tensor  # [B] int32 — neighbors looked at
     dist_count: torch.Tensor   # [B] int32 — distance computations
     iters: int                 # loop steps executed
+    #: [B] int32 with the tracer's search family on, else None: the steps
+    #: in which each query was not yet done when the step started (the
+    #: ``iters`` it takes when searched alone)
+    own_steps: torch.Tensor | None = None
 
 
 def _hash_slots(ids: torch.Tensor, hash_bits: int, exact: bool):
@@ -125,7 +132,12 @@ def graph_search(
       codes of its neighbors in adjacency order, so one row read per
       expanded node scores all its neighbors (the reference's QuantizedNode
       stream, QuantizedGraph.h:64-115); seeds are then scored from the
-      per-object rows ``seed_x``."""
+      per-object rows ``seed_x``.
+
+    With the tracer's search family on, one record per name ends the call:
+    ``traverse.steps`` (its steps), ``traverse.launch`` (host seconds from
+    the end of one done check to the start of the next: the step's
+    launches) and ``traverse.wait`` (host seconds blocked in the checks)."""
     n_pad, e_max = nbr.shape
     b = queries.shape[0]
     dev = queries.device
@@ -184,13 +196,25 @@ def graph_search(
     rank_ge_k = (pos >= k)[None, :]
     nbr_e = nbr[:, :e]
 
+    traced = trace.on(trace.SEARCH)
+    own = torch.zeros((b,), dtype=torch.int32, device=dev) if traced else None
+    launch_ns = wait_ns = 0
+    t_start = t_back = time.perf_counter_ns() if traced else 0
+
     it = 0
     while it < max_iters:
-        t_wait = time.perf_counter()
-        all_done = bool(done.all())
-        graph_search.wait_s += time.perf_counter() - t_wait
+        if traced:
+            t_check = time.perf_counter_ns()
+            all_done = bool(done.all())
+            launch_ns += t_check - t_back
+            t_back = time.perf_counter_ns()
+            wait_ns += t_back - t_check
+        else:
+            all_done = bool(done.all())
         if all_done:
             break
+        if traced:
+            own += ~done
         # explorationRadius (Graph.cpp:525): ε-scaled kr-th pool distance
         er = torch.minimum(pool_d[:, kr - 1], radius0) * eps_coeff
 
@@ -255,19 +279,22 @@ def graph_search(
         pool_e = pool_e & ~evict
         it += 1
     graph_search.steps += it
+    if traced:
+        trace.add("traverse.steps", it)
+        trace.add("traverse.launch", (launch_ns + time.perf_counter_ns() - t_back) / 1e9, t_start)
+        trace.add("traverse.wait", wait_ns / 1e9, t_start)
 
     out_d = pool_d[:, :k]
     out_i = pool_i[:, :k]
     keep = out_d <= radius0[:, None]
     return SearchResult(
-        torch.where(keep, out_i, -1), torch.where(keep, out_d, INF), vc, dc, it
+        torch.where(keep, out_i, -1), torch.where(keep, out_d, INF), vc, dc, it, own
     )
 
 
-#: loop steps, and seconds the host spent in the per-step done check (a
-#: wait for the device), summed over calls since they were last set to 0
+#: loop steps summed over calls since it was last set to 0 (counted with the
+#: tracer off too)
 graph_search.steps = 0
-graph_search.wait_s = 0.0
 
 
 def _repeats(ids: torch.Tensor, skip_negative: bool = False) -> torch.Tensor:

@@ -53,7 +53,7 @@ from ngt_tpu_torch.graph.build import (
     build_bulk,
     remove_object,
 )
-from ngt_tpu_torch import native
+from ngt_tpu_torch import native, trace
 from ngt_tpu_torch.graph.search import seeded_search, wrap_hash_bits
 from ngt_tpu_torch.graph.storage import GraphStore
 from ngt_tpu_torch.ops import bruteforce as BF
@@ -125,6 +125,7 @@ class Index:
         """Insert one vector (no graph node yet — call build_index)."""
         return self._ext(self.store.insert(np.asarray(v)))
 
+    @trace.public
     def batch_insert(self, vs, build: bool = True) -> np.ndarray:
         """Insert many vectors and (by default) index them."""
         ids = self.store.batch_insert(np.asarray(vs))
@@ -248,6 +249,7 @@ class Index:
         dist = np.where(inserted, np.float32(0), match_d).astype(np.float32)
         return out_ids, identical, dist
 
+    @trace.public
     def build_index(self, num_threads: int = 0) -> None:
         """Create graph nodes for all unindexed objects (Index::createIndex,
         Index.cpp:609-629).  ``build_algorithm`` "bulk" always takes the
@@ -459,6 +461,7 @@ class Index:
         self._ivfpq_mirror, self._ivfpq_ids, self._ivfpq_key = ivf, live.astype(np.int64), key
         return ivf
 
+    @trace.public
     def batch_search(
         self,
         queries,

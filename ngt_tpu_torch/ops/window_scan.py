@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ngt_tpu_torch import trace
 from ngt_tpu_torch.ops import _build
 
 BIG = np.float32(1e30)
@@ -71,7 +72,9 @@ def _check(q16, x16, ss) -> None:
 
 def window_scan(q16: torch.Tensor, x16: torch.Tensor, ss: torch.Tensor):
     """(scores [B, N/128] f32, ids [B, N/128] int32) of q [B, D] bf16
-    against x [N, D] bf16 with centered sqnorms ss [N] f32."""
+    against x [N, D] bf16 with centered sqnorms ss [N] f32.  With the
+    tracer's build family on, each kernel launch is the device span
+    ``k1``."""
     _check(q16, x16, ss)
     if q16.device.type == "cpu":
         return window_scan_plain(q16, x16, ss)
@@ -95,10 +98,11 @@ def window_scan(q16: torch.Tensor, x16: torch.Tensor, ss: torch.Tensor):
     out_d = torch.empty((b, n // WINDOW), dtype=torch.float32, device=q16.device)
     out_i = torch.empty((b, n // WINDOW), dtype=torch.int32, device=q16.device)
     stream = torch.cuda.current_stream(q16.device).cuda_stream
-    err = lib.ngt_window_scan(
-        q16.data_ptr(), x16.data_ptr(), ss.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), b, n, d, q16.device.index, stream,
-    )
+    with trace.span("k1", trace.BUILD, q16.device):
+        err = lib.ngt_window_scan(
+            q16.data_ptr(), x16.data_ptr(), ss.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), b, n, d, q16.device.index, stream,
+        )
     _build.check(err, "window_scan launch")
     window_scan.launches += 1
     return out_d, out_i

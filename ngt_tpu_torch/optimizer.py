@@ -29,6 +29,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ngt_tpu_torch import trace
 from ngt_tpu_torch.ops.bruteforce import recall_at_k
 
 
@@ -356,6 +357,7 @@ class GraphOptimizer:
     tune_parameters: bool = True
     queries: np.ndarray | None = field(default=None, repr=False)
 
+    @trace.public
     def execute(self, index) -> None:
         """KNNG/BKNNG inputs become ANNG first (GraphOptimizer.h:258-264);
         then ``reconstruct_graph``, ``adjust_paths``, graph type ONNG with
@@ -369,7 +371,7 @@ class GraphOptimizer:
         from ngt_tpu_torch.properties import GraphType
 
         dev = index.device
-        marks = _Marks(dev, R.last_profile)
+        marks = _Marks(dev, R.last_profile, "reconstruct.")
         n = index.store.repository_size
         graph = index.graph
         if index.prop.graph_type in (GraphType.KNNG, GraphType.BKNNG):
@@ -394,6 +396,7 @@ class GraphOptimizer:
         marks("mirror")
         index.optimize_seeds()
         marks("seeds")
+        marks.finish()
         if self.tune_parameters:
             q = self.queries if self.queries is not None else extract_queries(index, 200)
             generate_accuracy_table(index, q)

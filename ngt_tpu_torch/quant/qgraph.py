@@ -36,14 +36,13 @@ not ported: a ``torch.cuda.OutOfMemoryError`` propagates.
 
 from __future__ import annotations
 
-import contextlib
 import math
 import os
-import time
 
 import numpy as np
 import torch
 
+from ngt_tpu_torch import trace
 from ngt_tpu_torch.graph.search import _repeats, graph_search, wrap_hash_bits
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops.select import topk_pos
@@ -63,27 +62,17 @@ INF = float("inf")
 _F32 = torch.float32
 
 #: seconds per stage of the quantized-graph calls made with
-#: NGT_TPU_QG_PROFILE=1 since it was last cleared, each stage closed by a
-#: synchronize: quantize (with its pq4 parts fit and encode), blocks (the
-#: first call's code encode and block gather), seeds, traverse, rerank,
-#: refine
+#: NGT_TPU_QG_PROFILE=1 since it was last cleared (on a card the device
+#: timeline between the stage's two events, filled when the call ends):
+#: quantize (with its pq4 parts fit and encode), blocks (the first call's
+#: code encode and block gather), seeds, traverse, rerank, refine
 last_profile: dict[str, float] = {}
 
 
-@contextlib.contextmanager
 def _stage(label: str, dev: torch.device):
-    """Adds the stage's seconds to ``last_profile`` when
-    NGT_TPU_QG_PROFILE=1 (synchronizing the card on both sides); a no-op
-    otherwise."""
-    if os.environ.get("NGT_TPU_QG_PROFILE", "") != "1":
-        yield
-        return
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.perf_counter()
-    yield
-    sync()
-    last_profile[label] = last_profile.get(label, 0.0) + time.perf_counter() - t0
+    """The tracer's span ``qg.<label>`` of the search family, its seconds
+    added to ``last_profile[label]``."""
+    return trace.span("qg." + label, trace.SEARCH, dev, into=(last_profile, label))
 
 
 def _bucket(n: int) -> int:
@@ -150,7 +139,8 @@ def _qg_fused_search(
 ):
     """Seed selection, the block traversal, the exact re-rank over the
     mirror and the edge-tail refine, for one chunk of prepared queries
-    ``q`` [B, D_pad] f32.  The traversal queries are normalized when
+    ``q`` [B, D_pad] f32: (ids, dists, the traversal's ``SearchResult``).
+    The traversal queries are normalized when
     ``normalize_q``; then sq8 scales them by 1/scale and scores L2 over the
     int8 block rows, pq4 computes each query's lookup table [M * ksub] from
     the codebooks [M, ksub, dsub] and the mean and scores the packed block
@@ -177,12 +167,13 @@ def _qg_fused_search(
     with _stage("rerank", dev):
         ids1, d1 = _rerank_body(x, q, res.ids, res.ids >= 0, metric, k)
     if refine <= 0 or nbr_full.shape[1] <= eb:
-        return ids1, d1
+        return ids1, d1, res
     with _stage("refine", dev):
-        return _tail_refine_body(
+        ids1, d1 = _tail_refine_body(
             x, codes, nbr_full, valid, q, qt, res.ids, ids1,
             metric=metric, k=k, eb=eb, r_sel=refine, scorer=scorer,
         )
+    return ids1, d1, res
 
 
 class QuantizedGraphIndex:
@@ -324,6 +315,7 @@ class QuantizedGraphIndex:
         return self
 
     @classmethod
+    @trace.public
     def quantize(cls, index, dsub: int = 2, ksub: int = 16, iters: int = 20,
                  mode: str = "sq8") -> "QuantizedGraphIndex":
         """Codes for ``index``: sq8, or pq4 with ``dsub``-wide subspaces of
@@ -485,6 +477,7 @@ class QuantizedGraphIndex:
         return blocks, nbr
 
     # ------------------------------------------------------------------
+    @trace.public
     def batch_search(
         self,
         queries,
@@ -523,7 +516,10 @@ class QuantizedGraphIndex:
         """The batch in chunks of NGT_TPU_QG_CHUNK (512) queries; a batch
         within one chunk is padded to ``_bucket`` rows, a larger one to
         whole chunks (copies of its first row).  A query's result does not
-        depend on its chunk."""
+        depend on its chunk.  With the tracer's search family on, the call
+        records ``traverse.query_steps`` (the queries' own traversal steps,
+        the padding rows left out) and ``traverse.slot_steps`` (each
+        chunk's steps times its real rows)."""
         idx = self.index
         mirror = idx._ensure_mirror()
         bits, exact = wrap_hash_bits(mirror.capacity, idx.prop.visited_bits_log2)
@@ -554,18 +550,26 @@ class QuantizedGraphIndex:
         else:
             bounds = [(i, min(i + chunk, b0), chunk) for i in range(0, b0, chunk)]
         outs = []
+        query_steps, slot_steps = [], 0
         for lo, hi, pad in bounds:
             qc = qh[lo:hi]
             if hi - lo < pad:
                 qc = np.concatenate([qc, np.repeat(qc[:1], pad - (hi - lo), axis=0)])
             qd = torch.from_numpy(idx.store.prepare_queries_host(qc)).to(idx.store.device)
-            outs.append(_qg_fused_search(
+            ids_c, dists_c, res = _qg_fused_search(
                 blocks, nbr_eb, mirror.valid, codes, mirror.x,
                 seeder._rep_rows, seeder._rep_sq, seeder._rep_ids_dev, qd, self.sq_scale,
                 epsilon, e, mirror.nbr, cb, mean, **kw,
-            ))
+            )
+            outs.append((ids_c, dists_c))
+            if res.own_steps is not None:
+                query_steps.append(res.own_steps[: hi - lo].sum())
+                slot_steps += res.iters * (hi - lo)
         ids = torch.cat([o[0] for o in outs])[:b0].cpu().numpy()
         dists = torch.cat([o[1] for o in outs])[:b0].cpu().numpy()
+        if query_steps:
+            trace.add("traverse.query_steps", int(torch.stack(query_steps).sum()))
+            trace.add("traverse.slot_steps", slot_steps)
         return idx._ext(ids), dists
 
     def search(self, query, size: int = 10, epsilon: float = 0.02,

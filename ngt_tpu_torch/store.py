@@ -27,6 +27,7 @@ import heapq
 import numpy as np
 import torch
 
+from ngt_tpu_torch import trace
 from ngt_tpu_torch.ops import distances as D
 from ngt_tpu_torch.ops.bruteforce import pad_dim
 from ngt_tpu_torch.properties import DistanceType, ObjectType
@@ -157,21 +158,25 @@ class VectorStore:
         return int(self.batch_insert(v)[0])
 
     def batch_insert(self, vs: np.ndarray) -> np.ndarray:
-        rows = self._prepare(vs)
-        n = rows.shape[0]
-        ids = np.empty((n,), dtype=np.int32)
-        i = 0
-        while self._free and i < n:
-            ids[i] = heapq.heappop(self._free)
-            i += 1
-        fresh = n - i
-        if fresh:
-            start = self._size
-            self._size += fresh
-            self._ensure_capacity(self._size)
-            ids[i:] = np.arange(start, start + fresh, dtype=np.int32)
-        self._x[ids] = rows
-        self._valid[ids] = True
+        """Insert many vectors; returns their 1-based ids.  With the
+        tracer's build family on, the host span ``store.fill`` covers the
+        rows' preparation and their write into the store."""
+        with trace.span("store.fill", trace.BUILD):
+            rows = self._prepare(vs)
+            n = rows.shape[0]
+            ids = np.empty((n,), dtype=np.int32)
+            i = 0
+            while self._free and i < n:
+                ids[i] = heapq.heappop(self._free)
+                i += 1
+            fresh = n - i
+            if fresh:
+                start = self._size
+                self._size += fresh
+                self._ensure_capacity(self._size)
+                ids[i:] = np.arange(start, start + fresh, dtype=np.int32)
+            self._x[ids] = rows
+            self._valid[ids] = True
         self._dirty = True
         self.mutation_count += 1
         return ids

@@ -1,0 +1,240 @@
+"""The port's tracer: spans and counters kept in memory and read when a run
+ends.
+
+Two families, each switched on by the reference's variable set to "1":
+``SEARCH`` (NGT_TPU_QG_PROFILE: the quantized-graph stages and the
+traversal's counters) and ``BUILD`` (NGT_TPU_BUILD_PROFILE: the build and
+reconstruct marks, the store fill and the window-scan kernel).  A public
+call (marked by ``public``: ``Index.batch_search``, ``.batch_insert``,
+``.build_index``, ``GraphOptimizer.execute``, ...) reads both switches when
+it starts, so a caller may flip them between calls; outside any public
+call a site reads its switch itself.  With a family off a site records
+nothing, makes no CUDA event and never synchronizes.
+
+A record holds its name, the name of the span open around it (its parent, else None),
+the id of its public call (0 outside one), its host start and end on
+``time.perf_counter_ns()`` and a value: a span's seconds or a counter's
+count.  A span on a CUDA device holds two ``torch.cuda.Event``s on the
+current stream, and its seconds are the device timeline between them; they
+are read once the card has passed the second (``resolve``): when the
+outermost public call ends, or when the records are read.  Host spans and
+counters hold their value at once.  ``kineto_offset_ns()`` added to a host
+time places it on the clock of ``torch.profiler``'s Kineto events.
+
+The records sit in a buffer of ``CAPACITY`` entries that drops the oldest
+(counted in ``dropped``).  The tracer's state belongs to the process: public
+calls made from several threads at once would share one call id.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import functools
+import os
+import time
+
+import torch
+
+#: the families, named by their switches
+SEARCH = "NGT_TPU_QG_PROFILE"
+BUILD = "NGT_TPU_BUILD_PROFILE"
+
+#: records the buffer holds
+CAPACITY = 1 << 16
+
+
+_NULL = contextlib.nullcontext()
+
+
+class Record:
+    """One span or counter.  ``clock`` is "device" or "host" for a span,
+    None for a counter; ``value`` is None while a device span waits for its
+    events."""
+
+    __slots__ = ("name", "parent", "call", "t0", "t1", "value", "clock", "_events", "_into")
+
+    def __init__(self, name, t0, t1=None, value=None, clock=None):
+        self.name, self.t0, self.t1, self.value, self.clock = name, t0, t1, value, clock
+        self.parent = _open[-1].name if _open else None
+        self.call = _call if _depth else 0
+        self._events = self._into = None
+
+    def __repr__(self):
+        return (f"Record({self.name!r}, parent={self.parent!r}, call={self.call}, "
+                f"value={self.value!r}, clock={self.clock!r})")
+
+
+_records: collections.deque = collections.deque(maxlen=CAPACITY)
+#: records dropped from the full buffer since it was last cleared
+dropped = 0
+_pending: list[Record] = []   # device spans whose events are not read yet
+_open: list[Record] = []      # spans open now, innermost last
+_on = {SEARCH: False, BUILD: False}
+_depth = 0                    # public calls open now
+_call = 0                     # id of the newest public call
+
+
+def on(family: str) -> bool:
+    """Whether ``family`` records: its switch as the outermost open public
+    call read it, else as the environment has it now."""
+    return _on[family] if _depth else os.environ.get(family, "") == "1"
+
+
+def kineto_offset_ns() -> int:
+    """Kineto's clock (the wall clock, ``time.time_ns``) less
+    ``perf_counter_ns``, read now.  Read it close to the events it serves:
+    the wall clock may be slewed against the monotonic one."""
+    best = None
+    for _ in range(3):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
+
+
+def _keep(rec: Record) -> None:
+    global dropped
+    if len(_records) == _records.maxlen:
+        dropped += 1
+    _records.append(rec)
+
+
+def _add_into(rec: Record) -> None:
+    into, key = rec._into
+    into[key] = into.get(key, 0.0) + rec.value
+
+
+def _event(dev: torch.device):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
+class _Span:
+    """The context of one span; ``span`` makes it."""
+
+    __slots__ = ("rec", "dev", "into")
+
+    def __init__(self, name, dev, into):
+        self.rec = Record(name, 0)
+        self.dev, self.into = dev, into
+
+    def __enter__(self):
+        rec = self.rec
+        if self.dev is not None and self.dev.type == "cuda":
+            rec._events = (_event(self.dev), None)
+        _open.append(rec)
+        rec.t0 = time.perf_counter_ns()
+        return rec
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec.t1 = time.perf_counter_ns()
+        _open.pop()
+        rec._into = self.into
+        if rec._events is not None:
+            rec._events = (rec._events[0], _event(self.dev))
+            rec.clock = "device"
+            _pending.append(rec)
+        else:
+            rec.clock = "host"
+            rec.value = (rec.t1 - rec.t0) / 1e9
+            if self.into is not None:
+                _add_into(rec)
+        _keep(rec)
+        return False
+
+
+def span(name: str, family: str, dev: torch.device | None = None, into=None):
+    """``with span(name, family, dev):`` records the block as a span when
+    ``family`` is on; on a CUDA ``dev`` its seconds are the device's.
+    ``into`` = (dict, key): its seconds are added to ``dict[key]`` once
+    known (the views ``quant/qgraph.py`` keeps)."""
+    if not on(family):
+        return _NULL
+    return _Span(name, dev, into)
+
+
+def add(name: str, value, t0: int | None = None) -> Record:
+    """Records ``value`` under ``name`` now: a counter, or with ``t0`` (a
+    ``perf_counter_ns`` time) host seconds summed since then.  The caller
+    checks its family."""
+    t1 = time.perf_counter_ns()
+    rec = Record(name, t1 if t0 is None else t0, t1, value, None if t0 is None else "host")
+    _keep(rec)
+    return rec
+
+
+def stamp(dev: torch.device):
+    """A point of a sequence of marks: (host time, its CUDA event or None)."""
+    return time.perf_counter_ns(), (_event(dev) if dev.type == "cuda" else None)
+
+
+def interval(name: str, start, dev: torch.device):
+    """Records the span from the stamp ``start`` to now; returns the record
+    and the stamp that ends it (the next interval's start)."""
+    end = stamp(dev)
+    rec = Record(name, start[0], end[0])
+    if start[1] is not None:
+        rec._events, rec.clock = (start[1], end[1]), "device"
+        _pending.append(rec)
+    else:
+        rec.value, rec.clock = (end[0] - start[0]) / 1e9, "host"
+    _keep(rec)
+    return rec, end
+
+
+def resolve() -> None:
+    """Reads the device seconds of every pending span, waiting for the card
+    to pass each one's end event (only spans that a family on made)."""
+    for rec in _pending:
+        start, end = rec._events
+        end.synchronize()
+        rec.value = start.elapsed_time(end) / 1e3
+        rec._events = None
+        if rec._into is not None:
+            _add_into(rec)
+    _pending.clear()
+
+
+def records() -> list[Record]:
+    """The buffer's records, oldest first, every device span resolved."""
+    resolve()
+    return list(_records)
+
+
+def clear() -> None:
+    """Empties the buffer (pending spans included)."""
+    global _records, dropped
+    _records = collections.deque(maxlen=CAPACITY)
+    _pending.clear()
+    dropped = 0
+
+
+def public(fn):
+    """Decorator: ``fn`` is a public call.  The outermost public call reads
+    both switches, takes a new call id, and when it ends resolves the device
+    spans made inside it.  A public call inside another belongs to the outer
+    one's call."""
+
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        global _depth, _call
+        if _depth:
+            return fn(*args, **kwargs)
+        _on[SEARCH], _on[BUILD] = on(SEARCH), on(BUILD)
+        _call += 1
+        _depth = 1
+        try:
+            out = fn(*args, **kwargs)
+            if _pending:
+                resolve()
+            return out
+        finally:
+            _depth = 0
+            _on[SEARCH] = _on[BUILD] = False
+
+    return inner
