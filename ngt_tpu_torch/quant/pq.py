@@ -83,13 +83,15 @@ def make_packed_scorer(m: int, k: int):
     """Scorer over PACKED 4-bit codes with the ``graph_search`` scorer
     signature ``(lut_flat [B, M*K], packed [B, E, ceil(M/2)]) -> [B, E]``:
     unpack two nibbles per byte, then the table sum (m subspaces of k
-    entries; the low nibble is the even subspace)."""
+    entries; the low nibble is the even subspace).  Its ``kind`` names
+    what it computes, so a graph search may key a captured graph on it."""
 
     def adc_packed(lut_flat, packed):
         b, e, mp = packed.shape
         codes = torch.stack([packed & 0x0F, packed >> 4], dim=3).view(b, e, 2 * mp)
         return _adc(lut_flat, codes[:, :, :m], k)
 
+    adc_packed.kind = ("pq4", m, k)
     return adc_packed
 
 

@@ -6,6 +6,8 @@ neither JAX nor the JAX package, so it also runs on a machine that has only
 torch:  python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -246,6 +248,224 @@ def test_metric_distances_on_the_card_match_cpu(cuda, metric):
     ci, cd = TB.linear_search(tq, tx, valid, metric, 10)
     close(gd, cd)
     assert (gi.cpu() == ci).double().mean() >= 0.999
+
+
+@contextlib.contextmanager
+def _eager_loop(monkeypatch):
+    """The traversal as a loop of eager steps with a done check before
+    each one (no captured graph)."""
+    from ngt_tpu_torch.graph import search as TS
+
+    assert TS.EAGER_STEPS == 1
+    with monkeypatch.context() as m:
+        m.setattr(TS, "_graph_key", lambda *a, **k: None)
+        yield
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("metric", list(range(12)))
+def test_captured_steps_take_every_metric_on_the_card(cuda, monkeypatch, metric):
+    """Row-mode graph_search of every metric on a random 16-edge graph: the
+    captured replays give the eager loop's ids, distances, counts and
+    steps bit for bit (a step that synchronized could not be captured)."""
+    from ngt_tpu_torch.graph import search as TS
+    from ngt_tpu_torch.ops import distances as TD
+    from ngt_tpu_torch.properties import DistanceType as DT
+
+    metric = [m for m in DT if m != DT.NONE][metric]
+    rng = np.random.default_rng(int(metric) + 5)
+    n = 3000
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    x = t(_metric_rows(metric, n, 128, rng))
+    q = t(_metric_rows(metric, 64, 128, rng))
+    nbr = t(rng.integers(0, n, (n, 16)).astype(np.int32))
+    seeds = t(rng.integers(0, n, (64, 8)).astype(np.int32))
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    sq = TD.sq_norms(x) if metric in TD.ANGULAR_METRICS or metric == DT.POINCARE else None
+    kw = dict(metric=metric, k=10, epsilon=0.1, width=32, hash_bits=12, exact_hash=True,
+              x_sqnorm=sq)
+    got = TS.graph_search(x, nbr, valid, q, seeds, **kw)
+    with _eager_loop(monkeypatch):
+        want = TS.graph_search(x, nbr, valid, q, seeds, **kw)
+    for name in ("ids", "dists", "visit_count", "dist_count"):
+        assert _bits_equal(getattr(got, name), getattr(want, name)), name
+    assert got.iters == want.iters > TS.REPLAY_STEPS
+
+
+@pytest.mark.parametrize("route", ["sq8", "pq4", "row"])
+def test_captured_traversal_equals_the_eager_loop_on_the_card(cuda, monkeypatch, route):
+    """The qg route in sq8 and in pq4, and the exact route's row mode, on
+    a 20k-row index: the captured replays give the eager loop's ids,
+    distances, counts and steps bit for bit on a first call, on a call
+    with other queries, after rows of the mirror are updated in place,
+    after an append and after a full upload that moves the mirror.  A repeated shape captures
+    once, and a chunk runs fewer than REPLAY_STEPS spare steps."""
+    import collections
+
+    import ngt_tpu_torch
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.graph import search as TS
+    from ngt_tpu_torch.quant import qgraph as QG
+
+    monkeypatch.delenv(trace.SEARCH, raising=False)
+    if route == "pq4":
+        monkeypatch.setenv("NGT_TPU_QG_BLOCK_GB", "0.001")
+    rng = np.random.default_rng(21)
+    d = 32
+    x = rng.standard_normal((20000, d)).astype(np.float32)
+    q1 = x[:1024] + 0.3 * rng.standard_normal((1024, d)).astype(np.float32)
+    q2 = rng.standard_normal((1024, d)).astype(np.float32)
+    idx = ngt_tpu_torch.create(None, dimension=d, device=cuda)
+    idx.batch_insert(x[:19800], build=True)
+    kw = dict(size=10, epsilon=0.1, **({"expand": 1} if route == "row" else {}))
+
+    seen = []
+    orig = TS.graph_search
+
+    def spy(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        seen.append(res)
+        return res
+
+    spy.steps = 0
+    monkeypatch.setattr(TS, "graph_search", spy)
+    monkeypatch.setattr(QG, "graph_search", spy)
+
+    def both(q):
+        seen.clear()
+        gi, gd = idx.batch_search(q, **kw)
+        got = list(seen)
+        seen.clear()
+        with _eager_loop(monkeypatch):
+            wi, wd = idx.batch_search(q, **kw)
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gd.view(np.int32), wd.view(np.int32))
+        assert len(got) == len(seen) > 0
+        for a, b in zip(got, seen):
+            for name in ("ids", "dists", "visit_count", "dist_count"):
+                assert _bits_equal(getattr(a, name), getattr(b, name)), name
+            assert a.iters == b.iters
+        return got
+
+    assert len(both(q1)) == (1 if route == "row" else 2)
+    if route != "row":
+        assert idx._qg.mode == route
+    both(q2)
+    m = idx._mirror
+    ptrs = (m.x.data_ptr(), m.nbr.data_ptr())
+    idx.store._x[1:201, :d] = x[19800:]
+    m.update_rows(np.arange(1, 201), None)
+    assert (m.x.data_ptr(), m.nbr.data_ptr()) == ptrs   # updated in place
+    both(q1)
+    idx.batch_insert(x[19800:], build=True)   # the insertion searches step too
+    both(q2)
+    ptrs = m.x.data_ptr()
+    m.sync_full()
+    assert m.x.data_ptr() != ptrs
+    both(q1)
+
+    # traced calls replay the untraced calls' graphs: from an empty cache the
+    # first call captures one graph (both chunks are one shape), the next none
+    monkeypatch.setattr(TS, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setenv(trace.SEARCH, "1")
+    for captures in (1, 0):
+        trace.clear()
+        idx.batch_search(q1, **kw)
+        recs = trace.records()
+        assert sum(r.value for r in recs if r.name == "traverse.captures") == captures
+        spare = [r.value for r in recs if r.name == "traverse.spare_steps"]
+        assert spare and all(0 <= s < TS.REPLAY_STEPS for s in spare)
+    trace.clear()
+
+
+def _qg_index(cuda, rows=20000, d=32, seed=21):
+    import ngt_tpu_torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    idx = ngt_tpu_torch.create(None, dimension=d, device=cuda)
+    idx.batch_insert(x, build=True)
+    return idx, x, rng
+
+
+@pytest.mark.parametrize("route", ["sq8", "row"])
+def test_two_threads_search_one_index_on_the_card(cuda, monkeypatch, route):
+    """Two threads search one index at once, with other queries of the same
+    shape (so the same captured graph and state), the graph captured in one
+    thread while the other uses the card: each gets the answers of its
+    queries searched alone."""
+    import collections
+    import threading
+
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.graph import search as TS
+
+    monkeypatch.delenv(trace.SEARCH, raising=False)
+    idx, x, rng = _qg_index(cuda)
+    kw = dict(size=10, epsilon=0.1, **({"expand": 1} if route == "row" else {}))
+    qs = [x[j * 256:(j + 1) * 256] + 0.3 * rng.standard_normal((256, 32)).astype(np.float32)
+          for j in range(2)]
+    alone = [idx.batch_search(q, **kw) for q in qs]
+    if route == "sq8":
+        assert idx._qg.mode == "sq8"
+    monkeypatch.setattr(TS, "_GRAPHS", collections.OrderedDict())
+    got, errors = [[], []], []
+    start = threading.Barrier(2)
+
+    def search(j):
+        try:
+            start.wait()
+            for _ in range(6):
+                got[j].append(idx.batch_search(qs[j], **kw))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=search, args=(j,)) for j in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    for (wi, wd), runs in zip(alone, got):
+        assert len(runs) == 6
+        for gi, gd in runs:
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gd.view(np.int32), wd.view(np.int32))
+
+
+def test_mixed_batch_sizes_capture_once_each_on_the_card(cuda, monkeypatch):
+    """Batches of 1-512 queries on the qg route pad to its five buckets
+    (32-512 rows): the first round captures one graph a bucket, a second
+    round none, and each answer equals the eager loop's."""
+    import collections
+
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.graph import search as TS
+
+    monkeypatch.setattr(TS, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setenv(trace.SEARCH, "1")
+    idx, x, rng = _qg_index(cuda)
+    sizes = (1, 40, 100, 200, 400, 512, 3, 33)
+    counts = []
+    for _ in range(2):
+        trace.clear()
+        for nq in sizes:
+            q = x[:nq] + 0.3 * rng.standard_normal((nq, 32)).astype(np.float32)
+            gi, gd = idx.batch_search(q, size=10, epsilon=0.1)
+            with _eager_loop(monkeypatch):
+                wi, wd = idx.batch_search(q, size=10, epsilon=0.1)
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gd.view(np.int32), wd.view(np.int32))
+        counts.append(sum(r.value for r in trace.records() if r.name == "traverse.captures"))
+    trace.clear()
+    assert idx._qg.mode == "sq8"
+    assert counts == [5, 0]
+    assert len(TS._GRAPHS) <= TS.GRAPH_CACHE
 
 
 def _mirror_after_mutations(dev, integral: bool):

@@ -217,3 +217,164 @@ def test_scorer_replaces_the_metric(graph_state):
     np.testing.assert_array_equal(tr.ids.numpy(), np.asarray(jr.ids))
     np.testing.assert_allclose(tr.dists.numpy(), np.asarray(jr.dists), rtol=1e-6)
     np.testing.assert_array_equal(tr.dist_count.numpy(), np.asarray(jr.dist_count))
+
+
+def _replay_inputs(graph_state, mode, seeds_case, nq=40):
+    """Row or block inputs over the fixture's graph, and queries with their
+    seeds: ``normal`` (ten seeds a query), ``spread`` (a third of the chunk
+    starts with no seed and is done at once, a third with one far seed) or
+    ``empty`` (no query has a seed: the pools start empty)."""
+    port = convert.from_ngt_tpu_arrays(device="cpu", **graph_state)
+    mirror = port._ensure_mirror()
+    n = mirror.x.shape[0]
+    rng = np.random.default_rng(23)
+    q = np.zeros((nq, mirror.x.shape[1]), np.float32)
+    q[:, :32] = rng.standard_normal((nq, 32))
+    seeds = rng.integers(1, n, size=(nq, 10)).astype(np.int32)
+    if seeds_case == "spread":
+        seeds[: nq // 3] = -1
+        seeds[nq // 3 : 2 * nq // 3, 1:] = -1
+    elif seeds_case == "empty":
+        seeds[:] = -1
+    if mode == "row":
+        args = (mirror.x, mirror.nbr, mirror.valid, torch.from_numpy(q))
+        return args, torch.from_numpy(seeds), {}
+    x = mirror.x.numpy().astype(np.float32)
+    codes, scale = _sq8(x)
+    nbr = mirror.nbr.numpy()[:, :24]
+    blocks = codes[np.clip(nbr, 0, n - 1)].reshape(n, -1)
+    args = (torch.from_numpy(blocks), torch.from_numpy(nbr), mirror.valid,
+            torch.from_numpy(q / scale))
+    return args, torch.from_numpy(seeds), dict(block_mode=True, seed_x=torch.from_numpy(codes))
+
+
+@pytest.mark.parametrize("mode,regime,expand,max_iters,seeds_case", [
+    ("row", "exact", 1, 0, "normal"),
+    ("row", "lossy", 1, 0, "normal"),
+    ("row", "exact", 2, 0, "normal"),
+    ("block", "lossy", 2, 0, "normal"),
+    ("row", "exact", 1, 13, "normal"),      # the limit cuts queries not done
+    ("block", "lossy", 2, 21, "normal"),
+    ("row", "lossy", 1, 0, "spread"),       # queries done at very different steps
+    ("block", "exact", 1, 0, "empty"),      # done at the seeds
+])
+def test_replays_match_a_check_every_step(graph_state, monkeypatch, mode, regime,
+                                                  expand, max_iters, seeds_case):
+    """The loop of ``REPLAY_STEPS`` steps between done checks (run eagerly
+    here) gives the ids, distances, counts, steps and each query's own
+    steps of a loop that checks before every step."""
+    from ngt_tpu_torch import trace
+
+    monkeypatch.setenv(trace.SEARCH, "1")
+    args, seeds, extra = _replay_inputs(graph_state, mode, seeds_case)
+    n = args[0].shape[0]
+    bits, exact = TS.wrap_hash_bits(n) if regime == "exact" else (10, False)
+    kw = dict(metric=DistanceType.L2, k=20, epsilon=0.1, width=64, hash_bits=bits,
+              exact_hash=exact, expand=expand, max_iters=max_iters, **extra)
+    assert TS.REPLAY_STEPS == 8 and TS.EAGER_STEPS == 1
+    monkeypatch.setattr(TS, "EAGER_STEPS", TS.REPLAY_STEPS)
+    got = TS.graph_search(*args, seeds, **kw)
+    monkeypatch.setattr(TS, "EAGER_STEPS", 1)
+    want = TS.graph_search(*args, seeds, **kw)
+    for name in ("ids", "dists", "visit_count", "dist_count", "own_steps"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert got.iters == want.iters
+    if max_iters:
+        assert want.iters == max_iters
+        # one step more and some query still steps: the limit cut it
+        assert TS.graph_search(*args, seeds, **dict(kw, max_iters=max_iters + 1)).iters \
+            == max_iters + 1
+    elif seeds_case == "empty":
+        assert got.iters == 0 and (got.ids == -1).all()
+    elif seeds_case == "spread":
+        own = got.own_steps.numpy()
+        assert own[: len(own) // 3].max() <= 1 < 8 < own.max()
+
+
+#: the state tensors of a traversal (graph/search.py ``_Loop``)
+_STATE = ("pool_d", "pool_i", "pool_e", "visited", "done", "vc", "dc", "own", "steps")
+
+
+@pytest.mark.parametrize("mode,regime,expand", [
+    ("row", "exact", 1), ("row", "lossy", 2), ("block", "lossy", 1), ("block", "exact", 2),
+])
+def test_steps_after_done_change_no_state(graph_state, monkeypatch, mode, regime, expand):
+    """Steps taken once every query is done leave every state tensor bit
+    for bit as it was: what makes the spare steps of a replay harmless."""
+    from ngt_tpu_torch import trace
+
+    monkeypatch.setenv(trace.SEARCH, "1")
+    seen = []
+    run = TS._run
+    monkeypatch.setattr(TS, "_run", lambda t, ins, *a: seen.append((t, ins)) or run(t, ins, *a))
+    args, seeds, extra = _replay_inputs(graph_state, mode, "normal")
+    bits, exact = TS.wrap_hash_bits(args[0].shape[0]) if regime == "exact" else (10, False)
+    TS.graph_search(*args, seeds, metric=DistanceType.L2, k=20, epsilon=0.1, width=64,
+                    hash_bits=bits, exact_hash=exact, expand=expand, **extra)
+    (t, ins), = seen
+    assert bool(t.done.all()) and int(t.steps) > 0
+    before = {name: getattr(t, name).clone() for name in _STATE}
+    for _ in range(TS.REPLAY_STEPS):
+        TS._step(t, ins)
+    for name in _STATE:
+        a, b = before[name], getattr(t, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+
+
+def test_two_threads_search_at_once(graph_state):
+    """Searches from two threads at once each get the answers of the same
+    search run alone."""
+    import threading
+
+    args, seeds, _ = _replay_inputs(graph_state, "row", "normal")
+    kw = dict(metric=DistanceType.L2, k=20, epsilon=0.1, width=64, hash_bits=10,
+              exact_hash=False)
+    halves = [(args[3][:20], seeds[:20]), (args[3][20:], seeds[20:])]
+    alone = [TS.graph_search(*args[:3], q, sd, **kw) for q, sd in halves]
+    got = [[], []]
+    start = threading.Barrier(2)
+
+    def search(j):
+        start.wait()
+        for _ in range(3):
+            got[j].append(TS.graph_search(*args[:3], *halves[j], **kw))
+
+    threads = [threading.Thread(target=search, args=(j,)) for j in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for want, runs in zip(alone, got):
+        assert len(runs) == 3
+        for res in runs:
+            for name in ("ids", "dists", "visit_count", "dist_count"):
+                assert torch.equal(getattr(res, name), getattr(want, name)), name
+            assert res.iters == want.iters
+
+
+def test_graph_cache_keeps_the_newest_within_its_bounds(monkeypatch):
+    """The captured graphs' cache drops the least recently kept first, past
+    ``GRAPH_CACHE`` entries or ``GRAPH_CACHE_BYTES`` of state, and always
+    keeps the newest."""
+    import collections
+
+    class Loop:
+        def __init__(self, nbytes):
+            self.nbytes = nbytes
+
+    monkeypatch.setattr(TS, "_GRAPHS", collections.OrderedDict())
+    assert TS.GRAPH_CACHE >= 5     # the qg route's batch buckets, 32-512 rows
+    for j in range(TS.GRAPH_CACHE + 3):
+        TS._keep(j, Loop(1))
+    assert list(TS._GRAPHS) == list(range(3, TS.GRAPH_CACHE + 3))
+    third = TS.GRAPH_CACHE_BYTES // 3
+    for key in "abc":
+        TS._keep(key, Loop(third))
+    assert list(TS._GRAPHS)[-3:] == ["a", "b", "c"]
+    assert sum(t.nbytes for t in TS._GRAPHS.values()) <= TS.GRAPH_CACHE_BYTES
+    TS._keep("big", Loop(2 * TS.GRAPH_CACHE_BYTES))
+    assert list(TS._GRAPHS) == ["big"]
+    TS._keep("small", Loop(1))
+    assert list(TS._GRAPHS) == ["small"]

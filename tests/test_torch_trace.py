@@ -119,6 +119,38 @@ def test_own_steps_are_the_steps_a_query_takes_alone(monkeypatch):
     np.testing.assert_array_equal(own, alone)
 
 
+def test_replay_counters_on_the_cpu(monkeypatch):
+    """Beside ``traverse.steps`` each traversal records its replays, its
+    spare steps and its captures: off CUDA a check every ``EAGER_STEPS``
+    steps (one: no spare step), and no capture.  With ``REPLAY_STEPS``
+    steps a check, as on CUDA, a chunk runs fewer than ``REPLAY_STEPS``
+    spare steps, and below ``max_iters`` every step is a replay's, so the
+    steps and the spare steps make whole replays."""
+    from ngt_tpu_torch.graph import search as TS
+
+    data, q = _data()
+    idx = _index(data)
+    monkeypatch.setenv(trace.SEARCH, "1")
+    monkeypatch.setenv("NGT_TPU_QG_CHUNK", "16")
+
+    def counters():
+        trace.clear()
+        idx.batch_search(q, size=10, epsilon=0.1)
+        return [[r.value for r in _named("traverse." + name)]
+                for name in ("steps", "replays", "spare_steps", "captures")]
+
+    steps, replays, spare, captures = counters()
+    assert len(steps) == len(replays) == len(spare) == len(captures) == 3
+    assert captures == [0, 0, 0] and spare == [0, 0, 0] and replays == steps
+    monkeypatch.setattr(TS, "EAGER_STEPS", TS.REPLAY_STEPS)
+    steps8, replays, spare, captures = counters()
+    assert steps8 == steps and captures == [0, 0, 0]
+    assert all(0 <= s < TS.REPLAY_STEPS for s in spare)
+    assert [(s + x) for s, x in zip(steps, spare)] == [TS.REPLAY_STEPS * r for r in replays]
+    assert {r.parent for r in trace.records() if r.name.startswith("traverse.")
+            and r.name not in ("traverse.query_steps", "traverse.slot_steps")} == {"qg.traverse"}
+
+
 def test_the_views_keep_their_keys_and_labels(monkeypatch, capsys):
     data, q = _data()
     monkeypatch.setenv(trace.BUILD, "1")
