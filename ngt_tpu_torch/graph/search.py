@@ -19,9 +19,10 @@ or when every query is done, and each done check waits for the device.
 On a CUDA device it runs ``REPLAY_STEPS`` steps between two checks as one
 captured CUDA graph, replayed with one host call; the graphs and their
 state are cached on everything the steps read (``_graph_key``), so a
-repeated shape captures once, and a lock lets one call at a time use a
-cached state.  Off CUDA, where a check costs nothing, it checks every
-``EAGER_STEPS`` steps.  A step taken after every query is done changes no
+repeated shape captures once, and a lock per card lets one call at a time
+use that card's cached states: calls on different cards run at once.  Off
+CUDA, where a check costs nothing, it checks every ``EAGER_STEPS`` steps.
+A step taken after every query is done changes no
 state, and a device counter counts only the steps in which some query was
 not done, so the answers, the counts and the steps equal a loop that
 checks before every step.  The function counts its steps
@@ -211,15 +212,18 @@ def graph_search(
         res = _run(new_loop(), *args, False, traced)
     else:
         # a cached loop's state is shared by every call of its key: one call
-        # at a time holds it, from the seed pool's copy to the outputs' read
-        with _LOCK, torch.cuda.device(dev):
-            loop = _GRAPHS.get(key)
+        # on its card at a time holds it, from the seed pool's copy to the
+        # outputs' read
+        with _card_lock(key[0]), torch.cuda.device(dev):
+            with _CACHE_LOCK:
+                loop = _GRAPHS.get(key)
+                if loop is not None:
+                    _GRAPHS.move_to_end(key)
             if loop is None:
                 loop = _keep(key, new_loop())
-            else:
-                _GRAPHS.move_to_end(key)
             res = _run(loop, *args, True, traced)
-    graph_search.steps += res.iters
+    with _CACHE_LOCK:
+        graph_search.steps += res.iters
     return res
 
 
@@ -235,31 +239,51 @@ REPLAY_STEPS = 8
 #: steps between two done checks off CUDA, where a check costs nothing
 EAGER_STEPS = 1
 
-#: captured graphs kept, the least recently used dropped first: the qg
-#: route's five batch buckets (32-512 rows, ``quant/qgraph.py::_bucket``)
-#: for three (epsilon, size) pairs, with a slot to spare
+#: captured graphs kept per card, the least recently used dropped first:
+#: the qg route's five batch buckets (32-512 rows,
+#: ``quant/qgraph.py::_bucket``) for three (epsilon, size) pairs, with a
+#: slot to spare
 GRAPH_CACHE = 16
-#: bytes of state the kept graphs may hold together (the newest is kept
-#: whatever its size): a 512-row chunk at 2^20 visited bits holds 64 MiB,
-#: a 10,000-query exact-route batch 1.25 GiB
+#: bytes of state a card's kept graphs may hold together (the newest is
+#: kept whatever its size): a 512-row chunk at 2^20 visited bits holds
+#: 64 MiB, a 10,000-query exact-route batch 1.25 GiB
 GRAPH_CACHE_BYTES = 4 << 30
 
-#: key -> _Loop of each captured graph (CUDA only)
+#: key -> _Loop of each captured graph (CUDA only); a key's first entry
+#: names its card
 _GRAPHS: collections.OrderedDict = collections.OrderedDict()
-#: held by a call while it uses a cached loop, captures included
-_LOCK = threading.Lock()
+#: held to look up, add or drop entries of ``_GRAPHS`` and to count steps
+_CACHE_LOCK = threading.Lock()
+#: card -> the lock a call holds while it uses one of that card's cached
+#: loops, captures included
+_CARD_LOCKS: dict = {}
 #: CUDA device index -> the stream graphs are captured on
 _CAPTURE_STREAMS: dict = {}
 
 
+def _card_lock(card) -> threading.Lock:
+    with _CACHE_LOCK:
+        return _CARD_LOCKS.setdefault(card, threading.Lock())
+
+
+def _card(key):
+    return key[0] if isinstance(key, tuple) else None
+
+
 def _keep(key, loop: _Loop) -> _Loop:
     """Caches ``loop`` under ``key``, dropping the least recently used
-    loops past ``GRAPH_CACHE`` entries or ``GRAPH_CACHE_BYTES``."""
-    _GRAPHS[key] = loop
-    while len(_GRAPHS) > GRAPH_CACHE or (
-            len(_GRAPHS) > 1 and sum(t.nbytes for t in _GRAPHS.values()) > GRAPH_CACHE_BYTES):
-        _GRAPHS.popitem(last=False)
-    return loop
+    loops of its card past ``GRAPH_CACHE`` entries or
+    ``GRAPH_CACHE_BYTES`` there; other cards' loops stay."""
+    card = _card(key)
+    with _CACHE_LOCK:
+        _GRAPHS[key] = loop
+        while True:
+            mine = [k for k in _GRAPHS if _card(k) == card]
+            if not (len(mine) > GRAPH_CACHE or (
+                    len(mine) > 1
+                    and sum(_GRAPHS[k].nbytes for k in mine) > GRAPH_CACHE_BYTES)):
+                return loop
+            del _GRAPHS[mine[0]]
 
 
 class _Inputs(NamedTuple):

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 from ngt_tpu_torch.utils import logger
@@ -33,6 +34,7 @@ FLAGS = [
 LIB_NAME = "libngt_tpu_torch_kernels.so"
 
 _lib = None
+_lock = threading.Lock()
 #: the library's build: {"seconds" (0.0 when it was already built), "ptxas"
 #: (the register, spill and warning lines nvcc printed, kept beside the
 #: library), "path"}
@@ -109,28 +111,30 @@ def _build(out: str) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built at first use."""
+    """The kernel library, built at first use (by one thread; the others
+    wait for it)."""
     global _lib
-    if _lib is None:
-        out = library_path()
-        # the ptxas report is written before the library is moved into
-        # place: a library without one predates the report and is rebuilt
-        if not (os.path.exists(out) and os.path.exists(_ptxas_path(out))):
-            _build(out)
-        else:
-            with open(_ptxas_path(out)) as fh:
-                build_info.update(seconds=0.0, ptxas=fh.read().splitlines(), path=out)
-        lib = ctypes.CDLL(out)
-        # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-        lib.ngt_window_scan.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        )
-        lib.ngt_window_scan.restype = ctypes.c_int
-        lib.ngt_window_scan_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.ngt_window_scan_plan.restype = ctypes.c_int
-        lib.ngt_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.ngt_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _lock:
+        if _lib is None:
+            out = library_path()
+            # the ptxas report is written before the library is moved into
+            # place: a library without one predates the report and is rebuilt
+            if not (os.path.exists(out) and os.path.exists(_ptxas_path(out))):
+                _build(out)
+            else:
+                with open(_ptxas_path(out)) as fh:
+                    build_info.update(seconds=0.0, ptxas=fh.read().splitlines(), path=out)
+            lib = ctypes.CDLL(out)
+            # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
+            lib.ngt_window_scan.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            )
+            lib.ngt_window_scan.restype = ctypes.c_int
+            lib.ngt_window_scan_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.ngt_window_scan_plan.restype = ctypes.c_int
+            lib.ngt_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.ngt_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

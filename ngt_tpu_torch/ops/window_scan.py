@@ -15,6 +15,8 @@ kernel cannot take raises; nothing falls back.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -104,9 +106,11 @@ def window_scan(q16: torch.Tensor, x16: torch.Tensor, ss: torch.Tensor):
             out_i.data_ptr(), b, n, d, q16.device.index, stream,
         )
     _build.check(err, "window_scan launch")
-    window_scan.launches += 1
+    with _COUNT_LOCK:   # builds on several cards launch from several threads
+        window_scan.launches += 1
     return out_d, out_i
 
 
 #: kernel launches since the count was last set to 0
 window_scan.launches = 0
+_COUNT_LOCK = threading.Lock()

@@ -12,7 +12,10 @@ graphs), and the per-shard top-k lists merge by one gather and a
 (distance, position) top-k: within one process a concatenation in shard
 order, across ranks a ``torch.distributed.all_gather`` (NCCL on CUDA
 devices, gloo on the CPU).  Ties pick the lower flattened ``[P, k]``
-position, as ``jax.lax.top_k`` does.
+position, as ``jax.lax.top_k`` does.  The shards' work fans out over the
+devices (``_fan_out``): each device runs its shards in a host thread of its
+own, so shards on different cards search and build at once, and shards on
+one device take turns; the answers are those of a loop over the shards.
 
 The build step (``make_sharded_build_step``) is the reference's SPMD
 growth step: a batch of new vectors is searched on every shard, the
@@ -27,6 +30,8 @@ reference's files and keys, so each package opens the other's.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import math
 import os
 from typing import NamedTuple
@@ -35,9 +40,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ngt_tpu_torch import trace
 from ngt_tpu_torch.graph.search import graph_search
 from ngt_tpu_torch.ops.select import sort_lex, topk_pos
-from ngt_tpu_torch.properties import DistanceType
+from ngt_tpu_torch.properties import DistanceType, ObjectType
 
 AXIS = "shard"
 INF = float("inf")
@@ -45,6 +51,11 @@ _F32 = torch.float32
 
 #: rows per step of the on-device sq8 encode and block gather
 _QG_CHUNK = 1 << 16
+#: queries a shard's sq8 traversal takes at once: a larger batch is cut
+#: into chunks of this many, the last one padded with copies of its first
+#: query, so that a batch of any size past it replays one captured loop.
+#: At 2^22 visited bits (2.5M rows a shard) a chunk's loop holds 1 GiB.
+QG_QUERY_CHUNK = 2048
 
 
 def visible_devices(device="cuda") -> list[torch.device]:
@@ -178,6 +189,49 @@ def _all_gather(mesh: Mesh, parts) -> torch.Tensor:
     return got.index_select(1, inv)
 
 
+def _device_groups(mesh: Mesh) -> list[list[int]]:
+    """The positions in ``mesh.local_shards`` grouped by device, each group
+    in shard order."""
+    groups: dict = {}
+    for j, s in enumerate(mesh.local_shards):
+        groups.setdefault(mesh.devices[s], []).append(j)
+    return list(groups.values())
+
+
+def _fan_out(mesh: Mesh, work) -> list:
+    """``work(j, s)`` for each local shard ``s = mesh.local_shards[j]`` on
+    its device, the results in ``local_shards`` order.  One host thread a
+    device group (``_device_groups``) runs its shards in turn; the groups
+    run at once, and on a CUDA device each shard's work has finished on
+    the card when this returns.  The tracer's place (the call, the open
+    span) carries into the threads."""
+    out = [None] * len(mesh.local_shards)
+
+    def run(group):
+        for j in group:
+            s = mesh.local_shards[j]
+            dev = mesh.devices[s]
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                out[j] = work(j, s)
+                if dev.type == "cuda":
+                    torch.cuda.current_stream(dev).synchronize()
+
+    groups = _device_groups(mesh)
+    if len(groups) == 1:
+        run(groups[0])
+        return out
+    place = trace.carry()
+
+    def thread(group):
+        with trace.adopt(place):
+            run(group)
+
+    with concurrent.futures.ThreadPoolExecutor(len(groups)) as pool:
+        for f in [pool.submit(thread, g) for g in groups]:
+            f.result()
+    return out
+
+
 def _global_max(mesh: Mesh, values) -> float:
     """Max of per-local-shard float32 scalars over every shard."""
     t = torch.stack([v.to(mesh.home, _F32).reshape(()) for v in values]).max().reshape(1)
@@ -288,17 +342,17 @@ def _sharded_search(mesh, x, nbr, valid, q, seeds, *, metric, k, epsilon, width,
     the shard's own seed slots (exact visited table), local ids to global;
     then the all_gather top-k merge."""
     b = q.shape[0]
-    dists, gids = [], []
-    for j, s in enumerate(mesh.local_shards):
-        qd = q.to(mesh.devices[s], _F32)
+
+    def shard(j, s):
         res = graph_search(
-            x.parts[j], nbr.parts[j], valid.parts[j], qd, _seed_rows(seeds.parts[j], b),
-            metric=metric, k=k, epsilon=epsilon, width=width,
+            x.parts[j], nbr.parts[j], valid.parts[j], q.to(mesh.devices[s], _F32),
+            _seed_rows(seeds.parts[j], b), metric=metric, k=k, epsilon=epsilon, width=width,
             hash_bits=_hash_bits(n_local), exact_hash=True,
         )
-        dists.append(res.dists)
-        gids.append(_global_ids(res.ids, s, n_local))
-    return _merge_topk(mesh, dists, gids, k)
+        return res.dists, _global_ids(res.ids, s, n_local)
+
+    dists, gids = zip(*_fan_out(mesh, shard))
+    return _merge_topk(mesh, list(dists), list(gids), k)
 
 
 # ----------------------------------------------------------------------------
@@ -393,17 +447,8 @@ def make_sharded_build_step(
         newx = torch.as_tensor(newx)
         new_gids = torch.as_tensor(new_gids)
         b = newx.shape[0]
-        dists, gids = [], []
-        for j, s in enumerate(mesh.local_shards):
-            dev = mesh.devices[s]
-            res = graph_search(
-                x.parts[j], nbr.parts[j], valid.parts[j], newx.to(dev, _F32),
-                _seed_rows(seeds.parts[j], b), metric=metric, k=k, epsilon=epsilon,
-                width=width, hash_bits=_hash_bits(n_local), exact_hash=True,
-            )
-            dists.append(res.dists)
-            gids.append(_global_ids(res.ids, s, n_local))
-        nn_i, nn_d = _merge_topk(mesh, dists, gids, k)
+        nn_i, nn_d = _sharded_search(mesh, x, nbr, valid, newx, seeds, metric=metric, k=k,
+                                     epsilon=epsilon, width=width, n_local=n_local)
 
         xs, nbrs, nbr_ds, valids = [], [], [], []
         for j, s in enumerate(mesh.local_shards):
@@ -484,6 +529,7 @@ class ShardedIndex:
         self.id_map = id_map  # global slot -> original row index (-1 unused)
 
     @classmethod
+    @trace.public
     def build(
         cls,
         data: np.ndarray,
@@ -492,17 +538,20 @@ class ShardedIndex:
         edge_size_for_creation: int = 10,
         max_edges: int = 48,
         seed_size: int = 12,
+        object_type: ObjectType = ObjectType.FLOAT,
     ) -> "ShardedIndex":
         """Build per-shard ANNGs with ``create`` + ``build_index`` on each
-        shard's device and lay them out over the mesh.  Every rank passes
-        the same ``data`` and builds only the shards it owns; the seed
-        count is agreed over the mesh's group."""
+        shard's device (the devices at once, ``_fan_out``) and lay them out
+        over the mesh; each shard stores its rows as ``object_type`` does
+        (uint8 rows for ``UINT8``).  Every rank passes the same ``data``
+        and builds only the shards it owns; the seed count is agreed over
+        the mesh's group."""
         import ngt_tpu_torch
         from ngt_tpu_torch.ops.bruteforce import pad_dim
 
         mesh = mesh or make_mesh()
         p = mesh.size
-        data = np.asarray(data, np.float32)
+        data = np.asarray(data)
         n, dim = data.shape
         d_pad = pad_dim(dim)
         n_local = (n + p - 1) // p
@@ -512,19 +561,17 @@ class ShardedIndex:
             rows = np.nonzero(owner == s)[0]
             id_map[s * n_local : s * n_local + len(rows)] = rows
 
-        parts = {"x": [], "nbr": [], "nbr_dist": [], "valid": []}
-        shard_seeds = []
-        for s in mesh.local_shards:
+        def shard(j, s):
             rows = np.nonzero(owner == s)[0]
             sub = ngt_tpu_torch.create(
-                None, dimension=dim, distance_type=metric,
+                None, dimension=dim, distance_type=metric, object_type=object_type,
                 edge_size_for_creation=edge_size_for_creation,
                 max_edges=max_edges, device=mesh.devices[s],
             )
             ids = sub.store.batch_insert(data[rows])
             sub.build_index()
             # local layout: slot j holds internal id ids[j]
-            x_b = np.zeros((n_local, d_pad), np.float32)
+            x_b = np.zeros((n_local, d_pad), sub.store._x.dtype)
             x_b[: len(rows)] = sub.store._x[ids]
             remap = np.full(sub.store._x.shape[0], -1, np.int32)
             remap[ids] = np.arange(len(rows), dtype=np.int32)
@@ -538,17 +585,18 @@ class ShardedIndex:
             nbrd_b[: len(rows)] = dd
             val_b = np.zeros(n_local, bool)
             val_b[: len(rows)] = True
-            for key, blk in zip(parts, (x_b, nbr_b, nbrd_b, val_b)):
-                parts[key].append(blk)
             # per-shard seeds = the sub-index's representatives (k-means
             # coverage beats an arbitrary first-S slice), in local slots
             reps = remap[sub.seeder.rep_ids]
             reps = reps[reps >= 0]
             if len(reps) == 0:
                 reps = np.arange(min(seed_size * 4, len(rows)), dtype=np.int32)
-            shard_seeds.append(reps.astype(np.int32))
             sub.close()
-            del sub
+            return (x_b, nbr_b, nbrd_b, val_b), reps.astype(np.int32)
+
+        built = _fan_out(mesh, shard)
+        parts = dict(zip(("x", "nbr", "nbr_dist", "valid"), zip(*(b[0] for b in built))))
+        shard_seeds = [b[1] for b in built]
         s_max = int(_global_max(mesh, [torch.tensor(float(len(r))) for r in shard_seeds]))
         seeds = np.zeros((len(shard_seeds), 1, s_max), np.int32)
         for j, reps in enumerate(shard_seeds):
@@ -556,7 +604,7 @@ class ShardedIndex:
             if len(reps) < s_max:  # pad by repeating (dedup'd in search)
                 seeds[j, 0, len(reps):] = reps[0] if len(reps) else 0
         arr = lambda key, *tail: ShardedArray.from_local(
-            mesh, parts[key], (p * n_local, *tail))
+            mesh, list(parts[key]), (p * n_local, *tail))
         sharded = ShardedGraphIndex.from_arrays(
             mesh, arr("x", d_pad), arr("nbr", max_edges), arr("valid"),
             ShardedArray.from_local(mesh, list(seeds), (p, s_max)), metric, n_local,
@@ -753,10 +801,17 @@ class ShardedQG:
         self.valid = valid
         self.seed_ids_local = seeds
 
+    @trace.public
     def search(self, queries, k: int = 10, epsilon: float = 0.0,
                result_expansion: float = 3.0, width: int = 0):
         """Padded queries [B, D_pad] -> global ids [B, k] int64 (-1 where
-        the distance is not finite) and distances, on ``mesh.home``."""
+        the distance is not finite) and distances, on ``mesh.home``.  With
+        the tracer's search family on it records the host span
+        ``shard.fanout`` (the shards' work, first issued to last finished),
+        per shard s the device spans ``shard<s>.traverse`` (seeds and
+        traversal) and ``shard<s>.rerank`` on its device and the counter
+        ``shard<s>.steps`` (its traversal steps), and the device span
+        ``shard.merge`` on ``mesh.home`` (the copies there and the top-k)."""
         k_exp = max(int(np.ceil(k * max(result_expansion, 1.0))), k)
         return _sharded_qg_search(
             self, torch.as_tensor(queries), k=k, k_exp=k_exp, epsilon=float(epsilon),
@@ -764,34 +819,65 @@ class ShardedQG:
         )
 
 
+def _query_chunks(b: int) -> list[tuple[int, int, int]]:
+    """(first, end, rows) of each chunk of a batch of ``b`` queries: the
+    batch whole up to ``QG_QUERY_CHUNK``, else chunks of that many rows."""
+    if b <= QG_QUERY_CHUNK:
+        return [(0, b, b)]
+    return [(lo, min(lo + QG_QUERY_CHUNK, b), QG_QUERY_CHUNK)
+            for lo in range(0, b, QG_QUERY_CHUNK)]
+
+
+def _padded(q: torch.Tensor, rows: int) -> torch.Tensor:
+    """``q`` with copies of its first row appended up to ``rows`` rows."""
+    if q.shape[0] == rows:
+        return q
+    return torch.cat([q, q[:1].expand(rows - q.shape[0], -1)])
+
+
 def _sharded_qg_search(qg: ShardedQG, q, *, k, k_exp, epsilon, width):
-    """Per shard: the block traversal over the sq8 codes (queries
-    normalized for the plain angular metrics, then divided by the scale),
-    the exact re-rank of its k_exp candidates with the true metric, local
-    ids to global; then the merge."""
+    """Per shard, in chunks of queries (``_query_chunks``): the block
+    traversal over the sq8 codes (queries normalized for the plain angular
+    metrics, then divided by the scale), the exact re-rank of its k_exp
+    candidates with the true metric, local ids to global; then the merge.
+    A query's answer does not depend on its chunk."""
     from ngt_tpu_torch.ops import distances as D
     from ngt_tpu_torch.quant.qgraph import _rerank_body
 
     mesh = qg.mesh
-    b = q.shape[0]
-    dists, gids = [], []
-    for j, s in enumerate(mesh.local_shards):
+    chunks = _query_chunks(q.shape[0])
+    angular = qg.metric in (DistanceType.COSINE, DistanceType.ANGLE)
+
+    def shard(j, s):
         dev = mesh.devices[s]
         qd = q.to(dev, _F32)
-        angular = qg.metric in (DistanceType.COSINE, DistanceType.ANGLE)
         qdv = D.normalize_rows(qd) if angular else qd
         div = torch.full((1,), np.float32(qg.sq_scale), dtype=_F32, device=dev)
-        res = graph_search(
-            qg.blocks.parts[j], qg.nbr.parts[j], qg.valid.parts[j], qdv / div,
-            _seed_rows(qg.seed_ids_local.parts[j], b), metric=DistanceType.L2,
-            k=k_exp, k_radius=k, epsilon=epsilon, width=width,
-            hash_bits=_hash_bits(qg.n_local), exact_hash=True, block_mode=True,
-            seed_x=qg.codes.parts[j],
-        )
-        ids1, d1 = _rerank_body(qg.x.parts[j], qd, res.ids, res.ids >= 0, qg.metric, k)
-        dists.append(d1)
-        gids.append(_global_ids(ids1, s, qg.n_local))
-    out_i, out_d = _merge_topk(mesh, dists, gids, k)
+        qs = qdv / div
+        ids, dists, steps = [], [], 0
+        for lo, hi, rows in chunks:
+            with trace.span(f"shard{s}.traverse", trace.SEARCH, dev):
+                res = graph_search(
+                    qg.blocks.parts[j], qg.nbr.parts[j], qg.valid.parts[j],
+                    _padded(qs[lo:hi], rows), _seed_rows(qg.seed_ids_local.parts[j], rows),
+                    metric=DistanceType.L2, k=k_exp, k_radius=k, epsilon=epsilon, width=width,
+                    hash_bits=_hash_bits(qg.n_local), exact_hash=True, block_mode=True,
+                    seed_x=qg.codes.parts[j],
+                )
+            cand = res.ids[: hi - lo]
+            with trace.span(f"shard{s}.rerank", trace.SEARCH, dev):
+                ids1, d1 = _rerank_body(qg.x.parts[j], qd[lo:hi], cand, cand >= 0, qg.metric, k)
+            ids.append(ids1)
+            dists.append(d1)
+            steps += res.iters
+        if trace.on(trace.SEARCH):
+            trace.add(f"shard{s}.steps", steps)
+        return torch.cat(dists), _global_ids(torch.cat(ids), s, qg.n_local)
+
+    with trace.span("shard.fanout", trace.SEARCH):
+        dists, gids = zip(*_fan_out(mesh, shard))
+    with trace.span("shard.merge", trace.SEARCH, mesh.home):
+        out_i, out_d = _merge_topk(mesh, list(dists), list(gids), k)
     return torch.where(torch.isfinite(out_d), out_i, -1), out_d
 
 

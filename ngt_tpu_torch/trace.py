@@ -22,8 +22,11 @@ counters hold their value at once.  ``kineto_offset_ns()`` added to a host
 time places it on the clock of ``torch.profiler``'s Kineto events.
 
 The records sit in a buffer of ``CAPACITY`` entries that drops the oldest
-(counted in ``dropped``).  The tracer's state belongs to the process: public
-calls made from several threads at once would share one call id.
+(counted in ``dropped``), shared by every thread.  The open spans, the
+switches a public call read and its id belong to the thread that made the
+call, so calls from several threads at once keep their own parents and
+ids; work a call hands to other threads (``carry`` then ``adopt``) records
+as part of that call, under the span open where it was handed over.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import itertools
 import os
+import threading
 import time
 
 import torch
@@ -56,8 +61,9 @@ class Record:
 
     def __init__(self, name, t0, t1=None, value=None, clock=None):
         self.name, self.t0, self.t1, self.value, self.clock = name, t0, t1, value, clock
-        self.parent = _open[-1].name if _open else None
-        self.call = _call if _depth else 0
+        t = _local
+        self.parent = t.open[-1].name if t.open else None
+        self.call = t.call if t.depth else 0
         self._events = self._into = None
 
     def __repr__(self):
@@ -65,20 +71,51 @@ class Record:
                 f"value={self.value!r}, clock={self.clock!r})")
 
 
+class _Thread(threading.local):
+    """A thread's place in the tracer."""
+
+    def __init__(self):
+        self.open: list[Record] = []   # spans open now, innermost last
+        self.on = {SEARCH: False, BUILD: False}
+        self.depth = 0                 # public calls open now
+        self.call = 0                  # id of the outermost open public call
+
+
 _records: collections.deque = collections.deque(maxlen=CAPACITY)
 #: records dropped from the full buffer since it was last cleared
 dropped = 0
 _pending: list[Record] = []   # device spans whose events are not read yet
-_open: list[Record] = []      # spans open now, innermost last
-_on = {SEARCH: False, BUILD: False}
-_depth = 0                    # public calls open now
-_call = 0                     # id of the newest public call
+_lock = threading.Lock()      # held to change the buffer or the pending list
+_local = _Thread()
+_calls = itertools.count(1)   # public call ids, unique across threads
 
 
 def on(family: str) -> bool:
     """Whether ``family`` records: its switch as the outermost open public
     call read it, else as the environment has it now."""
-    return _on[family] if _depth else os.environ.get(family, "") == "1"
+    t = _local
+    return t.on[family] if t.depth else os.environ.get(family, "") == "1"
+
+
+def carry():
+    """This thread's place in the tracer, for ``adopt`` in a thread it
+    hands work to."""
+    t = _local
+    return t.depth, t.call, dict(t.on), t.open[-1] if t.open else None
+
+
+@contextlib.contextmanager
+def adopt(place):
+    """Runs the block in this thread as part of the call that ``carry``
+    read ``place`` in, under the span that was open there."""
+    t = _local
+    saved = t.depth, t.call, t.on, t.open
+    t.depth, t.call, on_, parent = place
+    t.on, t.open = dict(on_), [parent] if parent is not None else []
+    try:
+        yield
+    finally:
+        t.depth, t.call, t.on, t.open = saved
 
 
 def kineto_offset_ns() -> int:
@@ -95,11 +132,18 @@ def kineto_offset_ns() -> int:
     return best[1]
 
 
-def _keep(rec: Record) -> None:
+def _keep(rec: Record, pending: bool = False) -> None:
+    """Appends ``rec`` to the buffer; a device span also waits in the
+    pending list, a host span adds its seconds to its view at once."""
     global dropped
-    if len(_records) == _records.maxlen:
-        dropped += 1
-    _records.append(rec)
+    with _lock:
+        if len(_records) == _records.maxlen:
+            dropped += 1
+        _records.append(rec)
+        if pending:
+            _pending.append(rec)
+        elif rec._into is not None:
+            _add_into(rec)
 
 
 def _add_into(rec: Record) -> None:
@@ -126,25 +170,22 @@ class _Span:
         rec = self.rec
         if self.dev is not None and self.dev.type == "cuda":
             rec._events = (_event(self.dev), None)
-        _open.append(rec)
+        _local.open.append(rec)
         rec.t0 = time.perf_counter_ns()
         return rec
 
     def __exit__(self, *exc):
         rec = self.rec
         rec.t1 = time.perf_counter_ns()
-        _open.pop()
+        _local.open.pop()
         rec._into = self.into
         if rec._events is not None:
             rec._events = (rec._events[0], _event(self.dev))
             rec.clock = "device"
-            _pending.append(rec)
         else:
             rec.clock = "host"
             rec.value = (rec.t1 - rec.t0) / 1e9
-            if self.into is not None:
-                _add_into(rec)
-        _keep(rec)
+        _keep(rec, rec._events is not None)
         return False
 
 
@@ -180,38 +221,40 @@ def interval(name: str, start, dev: torch.device):
     rec = Record(name, start[0], end[0])
     if start[1] is not None:
         rec._events, rec.clock = (start[1], end[1]), "device"
-        _pending.append(rec)
     else:
         rec.value, rec.clock = (end[0] - start[0]) / 1e9, "host"
-    _keep(rec)
+    _keep(rec, start[1] is not None)
     return rec, end
 
 
 def resolve() -> None:
     """Reads the device seconds of every pending span, waiting for the card
     to pass each one's end event (only spans that a family on made)."""
-    for rec in _pending:
-        start, end = rec._events
-        end.synchronize()
-        rec.value = start.elapsed_time(end) / 1e3
-        rec._events = None
-        if rec._into is not None:
-            _add_into(rec)
-    _pending.clear()
+    with _lock:
+        for rec in _pending:
+            start, end = rec._events
+            end.synchronize()
+            rec.value = start.elapsed_time(end) / 1e3
+            rec._events = None
+            if rec._into is not None:
+                _add_into(rec)
+        _pending.clear()
 
 
 def records() -> list[Record]:
     """The buffer's records, oldest first, every device span resolved."""
     resolve()
-    return list(_records)
+    with _lock:
+        return list(_records)
 
 
 def clear() -> None:
     """Empties the buffer (pending spans included)."""
     global _records, dropped
-    _records = collections.deque(maxlen=CAPACITY)
-    _pending.clear()
-    dropped = 0
+    with _lock:
+        _records = collections.deque(maxlen=CAPACITY)
+        _pending.clear()
+        dropped = 0
 
 
 def public(fn):
@@ -222,19 +265,19 @@ def public(fn):
 
     @functools.wraps(fn)
     def inner(*args, **kwargs):
-        global _depth, _call
-        if _depth:
+        t = _local
+        if t.depth:
             return fn(*args, **kwargs)
-        _on[SEARCH], _on[BUILD] = on(SEARCH), on(BUILD)
-        _call += 1
-        _depth = 1
+        t.on = {SEARCH: on(SEARCH), BUILD: on(BUILD)}
+        t.call = next(_calls)
+        t.depth = 1
         try:
             out = fn(*args, **kwargs)
             if _pending:
                 resolve()
             return out
         finally:
-            _depth = 0
-            _on[SEARCH] = _on[BUILD] = False
+            t.depth = 0
+            t.on = {SEARCH: False, BUILD: False}
 
     return inner

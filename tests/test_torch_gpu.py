@@ -633,6 +633,67 @@ def test_sharded_search_on_the_card_matches_cpu(cuda):
     np.testing.assert_allclose(cd[ci == hi], hd[ci == hi], rtol=1e-5)
 
 
+def test_sharded_qg_fans_out_over_the_cards(cuda, monkeypatch, capsys):
+    """ShardedIndex over one shard a card (make_mesh() over every card; it
+    needs two or more), 600,000 uint8 rows a shard of the BIGANN proxy so
+    each shard's build launches the window-scan kernel on its own card, and
+    ShardedQG over 4,096 queries (two chunks): the fan-out gives the serial
+    loop's ids and distances bit for bit, its shards' device spans overlap,
+    and a repeated call captures no graph."""
+    import time
+
+    from h100_bench.gen import bigann_proxy
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.parallel import sharding as T
+    from ngt_tpu_torch.properties import ObjectType
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more CUDA devices")
+    monkeypatch.delenv(trace.SEARCH, raising=False)
+    gen = dict(clusters=2048, spectrum=-0.4, zipf=1.05, center_scale=0.9, noise_scale=0.45,
+               dimension=128)
+    base, queries = bigann_proxy.make(gen, 600_000 * n_cards, 4096, 2**31 + 3, cuda)
+    mesh = T.make_mesh()
+    assert mesh.size == n_cards and len(set(mesh.devices)) == n_cards
+    launches = WS.window_scan.launches
+    t0 = time.perf_counter()
+    sidx = T.ShardedIndex.build(base.astype(np.uint8), mesh=mesh, object_type=ObjectType.UINT8)
+    build_s = time.perf_counter() - t0
+    assert WS.window_scan.launches - launches >= n_cards
+    assert [p.device for p in sidx._sharded.x.parts] == mesh.devices
+    qg = T.ShardedQG.from_sharded_index(sidx)
+    q = torch.from_numpy(queries)
+
+    def timed():
+        t = time.perf_counter()
+        ids, dists = qg.search(q, k=10, epsilon=0.1)
+        return ids.cpu(), dists.cpu(), time.perf_counter() - t
+
+    fanned = [timed() for _ in range(2)]
+    with monkeypatch.context() as mp:
+        mp.setattr(T, "_device_groups", lambda m: [list(range(len(m.local_shards)))])
+        serial = [timed() for _ in range(2)]
+    for fi, fd, _ in fanned:
+        assert torch.equal(fi, serial[0][0])
+        assert torch.equal(fd.view(torch.int32), serial[0][1].view(torch.int32))
+    monkeypatch.setenv(trace.SEARCH, "1")
+    trace.clear()
+    qg.search(q, k=10, epsilon=0.1)
+    recs = trace.records()
+    trace.clear()
+    fan = sum(r.value for r in recs if r.name == "shard.fanout")
+    busy = sum(r.value for r in recs if r.name.endswith((".traverse", ".rerank"))
+               and r.name.startswith("shard"))
+    captures = sum(r.value for r in recs if r.name == "traverse.captures")
+    with capsys.disabled():
+        print(f"\n{n_cards} cards: build {build_s:.1f} s; search of 4,096 queries fanned "
+              f"{[round(f[2], 3) for f in fanned]} s, serial {[round(x[2], 3) for x in serial]} s; "
+              f"overlap {100 * busy / (n_cards * fan):.1f}%, captures {captures}")
+    assert captures == 0
+    assert busy / (n_cards * fan) > 0.5
+
+
 #: a C program on the C ABI with the default device: 300 rows, build, and
 #: every row's own search must return it first
 _CARD_C = r"""
