@@ -26,6 +26,19 @@ codes, the IVFPQ mirror), and checks each result:
     store), beside its bound, the plain version and a library yardstick,
     and the same comparison at that shape; then the same at d = 256, 384
     and 512 (4096 x 2^20 x d: the kernels line's ``*_by_d`` entries);
+    then the traversal kernel (``csrc/traverse.cu``) against the captured
+    ``_step`` loop (``_kernel_route`` turned off) on the same blocks,
+    seeds and state at the qg route's chunk shapes (TRAVERSE_SHAPES: a
+    512-row SIFT chunk of int8 codes, a glove chunk reading 24 of 48 edges
+    with the two-bit hashed table, a 2,048-row BIGANN shard chunk at 2^22
+    exact bits, and the u8-exact route's uint8 blocks) on a 65,536-row
+    clustered graph made on the card: ids on >= 99.9% of entries,
+    distances to rtol 1e-5 where they agree, equal steps, equal visit,
+    distance and own-step counts on the rows whose ids agree; the host's
+    shared-memory count equal to the kernel's; each shape's traversal
+    time on both routes beside the bound of its live query-steps (their
+    bytes at 3.35 TB/s, or two dependent device-memory round trips a
+    step, whichever is larger: the kernels line's ``traverse`` entry);
  5. the 1M build, with the kernel's launch count on that path and its phase
     split (the build's NGT_TPU_BUILD_PROFILE marks, each closed by a
     synchronize), and the kernel's share of the scan phase;
@@ -247,7 +260,10 @@ programs are torch code; the ONNG is rebuilt from the ANNG that phase 12's
 build made through the window-scan kernel), so the kernels line lists the
 window-scan kernel's launches by path only; phases 21 and 23 launch it
 through the CLI's bulk build and the dedup's bulk append, phase 24 through
-each shard's build, phase 28 through the 4M build.  It prints a few dozen
+each shard's build, phase 28 through the 4M build.  The traversal kernel
+runs every sq8 qg search on the card; the kernels line counts its launches
+on the main path's qg calls (phase 7), the u8 arm, the Cosine arm's qg
+call and the sharded quantized graph's search.  It prints a few dozen
 short lines as it goes, then one JSON line of the
 kernels, the nvidia-smi line and, last, one JSON line with ``"ok": true``.
 Any failure raises, so the run exits non-zero and prints no result; so
@@ -363,6 +379,26 @@ SCAN_WIDTHS = (256, 384, 512)
 #: calls (the first, the second and the one-chunk call) run over the first
 #: N_QG_Q held-out queries, phase 24's batch_search over the first N_SHARD_Q
 N_QG_Q, N_SHARD_Q = 2048, 2000
+#: the traversal kernel's shapes in phase 4, the qg route's chunks at the
+#: cells' widths: dimension d (padded to 128), block width eb of 64
+#: adjacency columns, e edges read, pool width w, k, kr, epsilon, the
+#: visited table (bits, exact or the two-bit hash), queries b, uint8 codes
+TRAVERSE_ROWS = 65536
+TRAVERSE_SHAPES = {
+    "sift": dict(d=128, eb=48, e=48, w=64, k=30, kr=10, eps=0.1, bits=20, exact=True,
+                 b=512, u8=False),
+    "glove": dict(d=100, eb=48, e=24, w=64, k=30, kr=10, eps=0.02, bits=20, exact=False,
+                  b=512, u8=False),
+    "bigann": dict(d=128, eb=48, e=48, w=64, k=30, kr=10, eps=0.1, bits=22, exact=True,
+                   b=2048, u8=False),
+    "u8_exact": dict(d=128, eb=48, e=48, w=64, k=30, kr=10, eps=0.1, bits=20, exact=True,
+                     b=512, u8=True),
+}
+#: device memory bandwidth and one dependent round trip to it (H100 SXM),
+#: the traversal kernel's two bounds
+HBM_BYTES_PER_S, HBM_ROUND_TRIP_S = 3.35e12, 0.6e-6
+#: the traversal kernel's launches by path (phases 7, 10, 12 and 24)
+TRAVERSE_LAUNCHES: dict = {}
 #: phase 28: bench.py's 4M arm (bench.py:768-877): bench's 5,000-row
 #: synthetic base tiled TILE_4M times plus normal noise (bench.py:786-790),
 #: N_4M_Q noisy base rows as queries (bench.py:792-795), its block budget
@@ -554,6 +590,19 @@ def qg_split(wall_s: float, n_chunks: int) -> None:
         f"({100 * wait / max(trav, 1e-9):.1f}%)")
 
 
+def traverse_launches(path: str, dev) -> None:
+    """Record the traversal kernel's launches since its count was set to 0
+    under ``path`` in TRAVERSE_LAUNCHES; raises if a search on the card
+    never launched it."""
+    from ngt_tpu_torch.ops import traverse as TV
+
+    n = TV.traverse.launches
+    TRAVERSE_LAUNCHES[path] = n
+    log(f"traverse launches on {path}: {n}")
+    if dev.type == "cuda" and n == 0:
+        raise AssertionError(f"{path} never launched the traversal kernel")
+
+
 def self_queries(search, base, sel, what: str) -> np.ndarray:
     ids, _ = search(base[sel])
     hits = int((ids[:, 0] == sel).sum())
@@ -609,6 +658,7 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
     import ngt_tpu_torch
     from ngt_tpu_torch import trace
     from ngt_tpu_torch.graph import build as TB
+    from ngt_tpu_torch.ops import traverse as TV
     from ngt_tpu_torch.ops import window_scan as WS
     from ngt_tpu_torch.graph.search import graph_search
     from ngt_tpu_torch.quant import qgraph as QG
@@ -661,6 +711,7 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
         QG.last_profile.clear()
         graph_search.steps = 0
         trace.clear()
+        TV.traverse.launches = 0
         t0 = time.time()
         idx.batch_search(held[:nq], size=10, epsilon=0.1)
         first_s = time.time() - t0
@@ -704,6 +755,7 @@ def drive(base: np.ndarray, held: np.ndarray, extra: np.ndarray, dev, kind: str,
             raise AssertionError("qg results changed across QuantizedGraphIndex.save/open")
         qg2.index.close()
         del qg, qg2
+        traverse_launches("main path: qg search (phase 7)", dev)
 
         # 8. the exact route on the same index
         idx.prop.search_mode = "exact"
@@ -1180,6 +1232,7 @@ def u8_arm(u: np.ndarray, dev, kind: str) -> int:
     tensor (scale 1.0), recall at the qg floor.  Returns the arm's
     window-scan launches."""
     import ngt_tpu_torch
+    from ngt_tpu_torch.ops import traverse as TV
     from ngt_tpu_torch.ops import window_scan as WS
 
     base, held = u[:N_BASE], u[N_BASE : N_BASE + N_U8_Q]
@@ -1190,6 +1243,7 @@ def u8_arm(u: np.ndarray, dev, kind: str) -> int:
     torch.cuda.synchronize()
     log(f"u8 arm: build of {len(base)} x {DIM} integers in 0..255: {time.time() - t0:.1f} s")
     gt = ground_truth(idx, held)
+    TV.traverse.launches = 0
     t0 = time.time()
     idx.batch_search(held[:512], size=10, epsilon=0.1)
     torch.cuda.synchronize()
@@ -1205,6 +1259,7 @@ def u8_arm(u: np.ndarray, dev, kind: str) -> int:
                         "u8 arm, qg route", kind)
     if rec < QG_RECALL_FLOOR:
         raise AssertionError(f"u8 qg recall@10 {rec:.4f} below {QG_RECALL_FLOOR}")
+    traverse_launches("u8 arm: qg search on uint8 blocks (phase 10)", dev)
     launches = WS.window_scan.launches
     if launches == 0:
         raise AssertionError("the u8 build never launched the window-scan kernel")
@@ -1252,6 +1307,7 @@ def cosine_arm(dev, kind: str) -> int:
     from ngt_tpu_torch.graph import build as TB
     from ngt_tpu_torch.graph.search import graph_search
     from ngt_tpu_torch.ops import bruteforce as BF
+    from ngt_tpu_torch.ops import traverse as TV
     from ngt_tpu_torch.ops import window_scan as WS
     from ngt_tpu_torch.quant import qgraph as QG
 
@@ -1291,10 +1347,12 @@ def cosine_arm(dev, kind: str) -> int:
     QG.last_profile.clear()
     graph_search.steps = 0
     trace.clear()
+    TV.traverse.launches = 0
     t0 = time.time()
     found, _ = idx.batch_search(queries, size=11, epsilon=0.02)
     secs = time.time() - t0
     del os.environ["NGT_TPU_QG_PROFILE"]
+    traverse_launches("Cosine arm: qg search (phase 12)", dev)
     qg = idx._qg
     if qg is None or qg.mode != "sq8":
         raise AssertionError("the Cosine search did not take the sq8 qg route")
@@ -1978,6 +2036,7 @@ def sharded_arm(tmp: str, dev) -> int:
 
     import ngt_tpu_torch.index as TI
     from ngt_tpu_torch.graph.search import graph_search
+    from ngt_tpu_torch.ops import traverse as TV
     from ngt_tpu_torch.ops import window_scan as WS
     from ngt_tpu_torch.parallel import multihost as MH
     from ngt_tpu_torch.parallel.sharded_ivfpq import ShardedIVFPQ
@@ -2048,10 +2107,12 @@ def sharded_arm(tmp: str, dev) -> int:
     secs["qg blocks"] = time.time() - t0
     on_card = all(p.device.type == dev.type for p in qg.blocks.parts + qg.codes.parts)
     nq = N_SHARD_QG_Q
+    TV.traverse.launches = 0
     t0 = time.time()
     qi, _ = qg.search(torch.from_numpy(held[:nq]), k=10, epsilon=0.1)
     qi = qi.cpu().numpy()
     secs["qg search"] = time.time() - t0
+    traverse_launches("sharded: ShardedQG search (phase 24)", dev)
     ext = np.where(qi >= 0, sidx.id_map[np.clip(qi, 0, None)], -1)
     qrec = recall_of(ext, gt[:nq])
     log(f"sharded: ShardedQG codes + blocks ({qg.eb} columns, scale {qg.sq_scale!r}) built "
@@ -2559,6 +2620,146 @@ def summary(out) -> str:
     return str(out)[:200]
 
 
+def traverse_inputs(dev, sp: dict, seed: int, n: int = TRAVERSE_ROWS):
+    """``graph_search``'s arguments for one TRAVERSE_SHAPES entry: a
+    clustered corpus of ``n`` rows and its 64-NN graph made on the
+    card (1% of the rows invalid, some rows padded with -1 or repeating an
+    id), its sq8 codes (int8 at one scale, or the uint8 values themselves)
+    and the blocks of the first eb columns, queries near corpus rows in the
+    codes' units, and seeds: the first five queries have none (done at the
+    start)."""
+    from ngt_tpu_torch.properties import DistanceType
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d, m, b = sp["d"], 128, sp["b"]
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev)
+
+    x = torch.zeros((n, m), device=dev)
+    x[:, :d] = normal(200, d)[ints(200, n)] + 0.5 * normal(n, d)
+    if sp["u8"]:
+        x[:, :d] = (40 * x[:, :d] + 128).round().clamp(0, 255)
+    nbr = torch.empty((n, 64), dtype=torch.int32, device=dev)
+    for lo in range(0, n, 4096):
+        dd = torch.cdist(x[lo : lo + 4096], x)
+        own = torch.arange(dd.shape[0], device=dev)
+        dd[own, own + lo] = float("inf")
+        nbr[lo : lo + 4096] = dd.topk(64, largest=False).indices.to(torch.int32)
+    rows = torch.randperm(n, generator=g, device=dev)[: n // 20]
+    nbr[rows[: n // 40], 40:] = -1
+    nbr[rows[n // 40 :], 3] = nbr[rows[n // 40 :], 2]
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[torch.randperm(n, generator=g, device=dev)[: n // 100]] = False
+    if sp["u8"]:
+        codes, scale = x.to(torch.uint8), 1.0
+    else:
+        scale = float(x.abs().max()) / 127.0
+        codes = (x * (1.0 / scale)).round().clamp(-127, 127).to(torch.int8)
+    nbr_eb = nbr[:, : sp["eb"]]
+    blocks = codes[nbr_eb.to(torch.int64).clamp(0, n - 1)].reshape(n, -1)
+    q = x[ints(n, b)] + 0.3 * normal(b, m)
+    q[:, d:] = 0.0
+    q = (q / scale).contiguous()
+    seeds = ints(n, b, 10).to(torch.int32)
+    seeds[:5] = -1
+    seeds[5:40, 6:] = -1
+    seeds[40:60, 1] = seeds[40:60, 0]
+    kw = dict(metric=DistanceType.L2, k=sp["k"], k_radius=sp["kr"], epsilon=sp["eps"],
+              width=sp["w"], edge_size=sp["e"], hash_bits=sp["bits"],
+              exact_hash=sp["exact"], block_mode=True, seed_x=codes)
+    return (blocks, nbr_eb, valid, q, seeds), kw
+
+
+def traverse_arm(dev, kind: str, reps: int = 5) -> dict:
+    """Phase 4's traversal kernel at each TRAVERSE_SHAPES entry: the kernel
+    route against the captured ``_step`` loop on the same inputs (raises on
+    disagreement), and the median time of the traversal (``_run``: the
+    seed pool's copy, the steps, the outputs and the steps' read back,
+    closed by a synchronize) on each route over ``reps`` calls after a warm
+    one, beside the bound of the live query-steps.  Returns {shape: dict}."""
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.graph import search as TS
+    from ngt_tpu_torch.ops import _build
+    from ngt_tpu_torch.ops import traverse as TV
+
+    lib = _build.load()
+    for sp in TRAVERSE_SHAPES.values():
+        want = TV.smem_bytes(sp["w"], sp["e"], 128)
+        if lib.ngt_traverse_smem(sp["w"], sp["e"], 128) != want:
+            raise AssertionError("ops/traverse.py::smem_bytes is not the kernel's layout")
+    orig_route, orig_run = TS._kernel_route, TS._run
+    secs: list = []
+
+    def timed_run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig_run(*a, **k)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        return res
+
+    def timed(args, kw, kernel: bool):
+        """(the first call's result, median ms of the traversal)"""
+        secs.clear()
+        if not kernel:
+            TS._kernel_route = lambda *a, **k: False
+        TS._run = timed_run
+        try:
+            res = [TS.graph_search(*args, **kw) for _ in range(reps + 1)][0]
+        finally:
+            TS._kernel_route, TS._run = orig_route, orig_run
+        return res, 1e3 * float(np.median(secs[1:]))
+
+    os.environ[trace.SEARCH] = "1"
+    out = {}
+    try:
+        for i, (name, sp) in enumerate(TRAVERSE_SHAPES.items()):
+            args, kw = traverse_inputs(dev, sp, SEED + 100 + i)
+            n0 = TV.traverse.launches
+            got, ms = timed(args, kw, True)
+            launched = TV.traverse.launches - n0
+            want, plain_ms = timed(args, kw, False)
+            if launched != reps + 1 or TV.traverse.launches - n0 != reps + 1:
+                raise AssertionError(f"traverse [{name}]: {launched} kernel launches in "
+                                     f"{reps + 1} kernel-route calls, then the loop launched it")
+            same = got.ids == want.ids
+            agree = same.float().mean().item()
+            close = bool(torch.isclose(got.dists[same], want.dists[same], rtol=1e-5,
+                                       atol=0).all())
+            rows = same.all(1)
+            counts = all(torch.equal(getattr(got, f)[rows], getattr(want, f)[rows])
+                         for f in ("visit_count", "dist_count", "own_steps"))
+            q_steps = int(want.own_steps.sum())
+            e, m = sp["e"], 128
+            step_bytes = e * m + 4 * e + 2 * 32 * e
+            bytes_ms = 1e3 * q_steps * step_bytes / HBM_BYTES_PER_S
+            latency_ms = 1e3 * want.iters * 2 * HBM_ROUND_TRIP_S
+            bound_ms = max(bytes_ms, latency_ms)
+            bound_by = "bytes" if bytes_ms >= latency_ms else "dependent round trips"
+            log(f"traverse vs loop [{name}: {sp['b']} queries, {kw['seed_x'].dtype} blocks, "
+                f"e {e} of {sp['eb']}, w {sp['w']}, 2^{sp['bits']} "
+                f"{'exact' if sp['exact'] else 'hashed'} bits] on {kind}: ids agree "
+                f"{agree:.6f}, distances within rtol 1e-5 {close}, steps {got.iters} vs "
+                f"{want.iters}, counts equal on agreeing rows {counts}; {q_steps} query-steps; "
+                f"kernel {ms:.3f} ms, loop {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by "
+                f"{bound_by} (bytes {bytes_ms:.3f}, round trips {latency_ms:.3f})")
+            if agree < 0.999 or not close or got.iters != want.iters or not counts:
+                raise AssertionError(f"the traversal kernel disagrees with the step loop ({name})")
+            out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                             ids_agree=agree, steps=want.iters, query_steps=q_steps,
+                             block_dtype=str(kw["seed_x"].dtype).replace("torch.", ""))
+            del args, kw, got, want
+            torch.cuda.empty_cache()
+    finally:
+        del os.environ[trace.SEARCH]
+        trace.clear()
+    return out
+
+
 def scan_bound(b: int, n: int, d: int) -> tuple[float, str]:
     """The least time (ms) one window-scan call of b queries over n rows of
     width d could take on the card: its 2*b*n*d flop at the bf16 peak or
@@ -2975,6 +3176,8 @@ def main() -> int:
     widths = {DIM: dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                         bound_ms=bound_ms, bound_by=bound_by)}
     widths.update(scan_widths(WS, dev, kind))
+    trav = traverse_arm(dev, kind)
+    torch.cuda.empty_cache()
 
     launches, append_launches, live_s = drive(base, held, extra, dev, kind, ms)
     torch.cuda.empty_cache()
@@ -3076,6 +3279,24 @@ def main() -> int:
         "bound_ms_by_d": {str(d): w["bound_ms"] for d, w in widths.items()},
         "bound_by_d": {str(d): w["bound_by"] for d, w in widths.items()},
         "library_ms_by_d": {str(d): w["library_ms"] for d, w in widths.items()},
+    }, {
+        "name": "traverse",
+        "route": "cuda",
+        "source": "ngt_tpu_torch/csrc/traverse.cu",
+        "replaces": "none: the JAX package's traversal is the lax.while_loop of "
+                    "ngt_tpu/graph/search.py:369, no Pallas kernel",
+        "launches": sum(TRAVERSE_LAUNCHES.values()),
+        "launches_by_path": TRAVERSE_LAUNCHES,
+        "matched": True,
+        "ms": trav["sift"]["ms"],
+        "plain_ms": trav["sift"]["plain_ms"],
+        "bound_ms": trav["sift"]["bound_ms"],
+        "bound_by": trav["sift"]["bound_by"],
+        "library_ms": None,
+        "library": "no library call computes it",
+        **{f"{key}_by_shape": {name: t[key] for name, t in trav.items()}
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "ids_agree", "steps",
+                       "query_steps", "block_dtype")},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,11 @@ CUDA, where a check costs nothing, it checks every ``EAGER_STEPS`` steps.
 A step taken after every query is done changes no
 state, and a device counter counts only the steps in which some query was
 not done, so the answers, the counts and the steps equal a loop that
-checks before every step.  The function counts its steps
+checks before every step.  The sq8 block traversal on a card
+(``_kernel_route``) runs instead as one launch of the traversal kernel
+(``ops/traverse.py``), in which each query takes its own steps to done:
+queries never read each other's state, so that equals the lockstep loop,
+whose steps are the most any query took.  The function counts its steps
 (``graph_search.steps``); with the tracer's search family on
 (``ngt_tpu_torch/trace.py``) it also counts each query's own steps, the
 replays, the spare steps and the captures, and splits the loop's host time
@@ -47,7 +51,9 @@ import torch
 
 from ngt_tpu_torch import trace
 from ngt_tpu_torch.ops import distances as D
+from ngt_tpu_torch.ops import traverse as TV
 from ngt_tpu_torch.ops.select import sort_lex
+from ngt_tpu_torch.properties import DistanceType
 from ngt_tpu_torch.seeds import top_seeds
 
 _F32 = torch.float32
@@ -156,7 +162,7 @@ def graph_search(
     checks), ``traverse.replays`` (graph replays, or runs of
     ``EAGER_STEPS`` eager steps off CUDA), ``traverse.spare_steps`` (steps
     run after every query was done) and ``traverse.captures`` (graphs
-    captured)."""
+    captured); on the kernel route also ``traverse.kernel_launches``."""
     n_pad, e_max = nbr.shape
     b = queries.shape[0]
     dev = queries.device
@@ -375,17 +381,35 @@ def _graph_key(ins: _Inputs, queries, **consts):
     )
 
 
+def _kernel_route(ins: _Inputs, queries, t: _Loop) -> bool:
+    """Whether ``_run`` launches the traversal kernel (``ops/traverse.py``),
+    decided from the inputs alone: the sq8 block traversal on a CUDA card
+    (block mode, L2 with no scorer, one expansion a step, int8 or uint8
+    block rows, float32 queries) at sizes within the kernel's limits (edges
+    read, query width, visited bits, one query's shared memory).  Every
+    other call steps ``_step``."""
+    return (
+        queries.device.type == "cuda" and ins.block_mode and ins.scorer is None
+        and DistanceType(ins.metric) == DistanceType.L2 and t.p == 1
+        and ins.x.dtype in (torch.int8, torch.uint8) and queries.dtype == torch.float32
+        and TV.takes(t.w, ins.nbr.shape[1], queries.shape[1], t.hash_bits)
+    )
+
+
 def _run(t: _Loop, ins: _Inputs, queries, q_sq, pool_d, pool_i, radius, max_iters: int,
          k: int, graphed: bool, traced: bool) -> SearchResult:
     """Writes a call's queries and seed pool into ``t`` and steps it until
-    every query is done or ``max_iters`` steps ran: ``REPLAY_STEPS`` steps
-    between two done checks when ``graphed`` (a replay of the captured
-    graph, captured on the first run of ``REPLAY_STEPS`` steps after one
-    eager step), else ``EAGER_STEPS``; single eager steps for the steps
-    left below that.  The outputs are made before the steps are read back,
-    so that read also waits for them, and ``t`` is free for the next call
-    once this returns."""
+    every query is done or ``max_iters`` steps ran: one launch of the
+    traversal kernel on the kernel route (``_kernel_route``); else
+    ``REPLAY_STEPS`` steps between two done checks when ``graphed`` (a
+    replay of the captured graph, captured on the first run of
+    ``REPLAY_STEPS`` steps after one eager step), else ``EAGER_STEPS``;
+    single eager steps for the steps left below that.  The outputs are made
+    before the steps are read back, so that read also waits for them, and
+    ``t`` is free for the next call once this returns."""
     t.start(queries, q_sq, pool_d[:, :t.w], pool_i[:, :t.w], radius)
+    if _kernel_route(ins, queries, t):
+        return _run_kernel(t, ins, max_iters, k, traced)
     m = REPLAY_STEPS if graphed else EAGER_STEPS
     replays = eager = captures = 0
     launch_ns = wait_ns = 0
@@ -420,12 +444,7 @@ def _run(t: _Loop, ins: _Inputs, queries, q_sq, pool_d, pool_i, radius, max_iter
         replays += 1
         left -= m
     t_end = time.perf_counter_ns() if traced else 0
-    out_d, out_i = t.pool_d[:, :k], t.pool_i[:, :k]
-    keep = out_d <= t.radius0[:, None]
-    res = SearchResult(
-        torch.where(keep, out_i, -1), torch.where(keep, out_d, INF),
-        t.vc.clone(), t.dc.clone(), int(t.steps), t.own.clone() if traced else None,
-    )
+    res = _result(t, k, traced)
     if traced:
         it = res.iters
         wait_ns += time.perf_counter_ns() - t_end
@@ -436,6 +455,42 @@ def _run(t: _Loop, ins: _Inputs, queries, q_sq, pool_d, pool_i, radius, max_iter
         trace.add("traverse.spare_steps", replays * m + eager - it)
         trace.add("traverse.captures", captures)
     return res
+
+
+def _run_kernel(t: _Loop, ins: _Inputs, max_iters: int, k: int, traced: bool) -> SearchResult:
+    """The kernel route of ``_run``: one launch steps every query of ``t``
+    to done or ``max_iters``, then one read back.  It replays, captures and
+    spares nothing; ``traverse.launch`` is the host's time to issue the
+    launch, ``traverse.wait`` the read back's."""
+    t_start = time.perf_counter_ns() if traced else 0
+    TV.traverse(
+        ins.x, ins.nbr, ins.valid, t.queries, t.radius0, t.pool_d, t.pool_i, t.pool_e,
+        t.visited, t.done, t.vc, t.dc, t.own, t.steps, e_max=ins.e_max, k=k, kr=t.kr,
+        eps_coeff=float(t.eps_coeff), hash_bits=t.hash_bits, exact_hash=t.exact_hash,
+        max_iters=max_iters,
+    )
+    t_end = time.perf_counter_ns() if traced else 0
+    res = _result(t, k, traced)
+    if traced:
+        trace.add("traverse.steps", res.iters)
+        trace.add("traverse.launch", (t_end - t_start) / 1e9, t_start)
+        trace.add("traverse.wait", (time.perf_counter_ns() - t_end) / 1e9, t_start)
+        trace.add("traverse.replays", 0)
+        trace.add("traverse.spare_steps", 0)
+        trace.add("traverse.captures", 0)
+        trace.add("traverse.kernel_launches", 1)
+    return res
+
+
+def _result(t: _Loop, k: int, traced: bool) -> SearchResult:
+    """The call's outputs from ``t``'s state; reading the step count waits
+    for the device."""
+    out_d, out_i = t.pool_d[:, :k], t.pool_i[:, :k]
+    keep = out_d <= t.radius0[:, None]
+    return SearchResult(
+        torch.where(keep, out_i, -1), torch.where(keep, out_d, INF),
+        t.vc.clone(), t.dc.clone(), int(t.steps), t.own.clone() if traced else None,
+    )
 
 
 def _capture(t: _Loop, ins: _Inputs):

@@ -130,6 +130,14 @@ def load() -> ctypes.CDLL:
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             )
             lib.ngt_window_scan.restype = ctypes.c_int
+            vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            lib.ngt_traverse.argtypes = (
+                [vp, ll, vp, ll] + [vp] * 7 + [ll] + [vp] * 5 + [ci] * 10
+                + [ctypes.c_float, ci, ci, vp]
+            )
+            lib.ngt_traverse.restype = ctypes.c_int
+            lib.ngt_traverse_smem.argtypes = [ci] * 3
+            lib.ngt_traverse_smem.restype = ci
             lib.ngt_window_scan_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
             lib.ngt_window_scan_plan.restype = ctypes.c_int
             lib.ngt_cuda_error_string.argtypes = [ctypes.c_int]

@@ -253,13 +253,22 @@ def test_metric_distances_on_the_card_match_cpu(cuda, metric):
 @contextlib.contextmanager
 def _eager_loop(monkeypatch):
     """The traversal as a loop of eager steps with a done check before
-    each one (no captured graph)."""
+    each one (no captured graph, no traversal kernel)."""
     from ngt_tpu_torch.graph import search as TS
 
     assert TS.EAGER_STEPS == 1
     with monkeypatch.context() as m:
         m.setattr(TS, "_graph_key", lambda *a, **k: None)
+        m.setattr(TS, "_kernel_route", lambda *a, **k: False)
         yield
+
+
+def _kernel_off(monkeypatch):
+    """The sq8 block traversal on the captured step loop, the traversal
+    kernel's route turned off."""
+    from ngt_tpu_torch.graph import search as TS
+
+    monkeypatch.setattr(TS, "_kernel_route", lambda *a, **k: False)
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -304,7 +313,8 @@ def test_captured_traversal_equals_the_eager_loop_on_the_card(cuda, monkeypatch,
     distances, counts and steps bit for bit on a first call, on a call
     with other queries, after rows of the mirror are updated in place,
     after an append and after a full upload that moves the mirror.  A repeated shape captures
-    once, and a chunk runs fewer than REPLAY_STEPS spare steps."""
+    once, and a chunk runs fewer than REPLAY_STEPS spare steps.  The sq8 route steps the
+    captured loop with the traversal kernel's route off (its twin below takes the kernel)."""
     import collections
 
     import ngt_tpu_torch
@@ -313,6 +323,7 @@ def test_captured_traversal_equals_the_eager_loop_on_the_card(cuda, monkeypatch,
     from ngt_tpu_torch.quant import qgraph as QG
 
     monkeypatch.delenv(trace.SEARCH, raising=False)
+    _kernel_off(monkeypatch)
     if route == "pq4":
         monkeypatch.setenv("NGT_TPU_QG_BLOCK_GB", "0.001")
     rng = np.random.default_rng(21)
@@ -441,12 +452,14 @@ def test_two_threads_search_one_index_on_the_card(cuda, monkeypatch, route):
 def test_mixed_batch_sizes_capture_once_each_on_the_card(cuda, monkeypatch):
     """Batches of 1-512 queries on the qg route pad to its five buckets
     (32-512 rows): the first round captures one graph a bucket, a second
-    round none, and each answer equals the eager loop's."""
+    round none, and each answer equals the eager loop's (the traversal kernel's route off;
+    its twin below takes the kernel)."""
     import collections
 
     from ngt_tpu_torch import trace
     from ngt_tpu_torch.graph import search as TS
 
+    _kernel_off(monkeypatch)
     monkeypatch.setattr(TS, "_GRAPHS", collections.OrderedDict())
     monkeypatch.setenv(trace.SEARCH, "1")
     idx, x, rng = _qg_index(cuda)
@@ -466,6 +479,224 @@ def test_mixed_batch_sizes_capture_once_each_on_the_card(cuda, monkeypatch):
     assert idx._qg.mode == "sq8"
     assert counts == [5, 0]
     assert len(TS._GRAPHS) <= TS.GRAPH_CACHE
+
+
+def test_kernel_traversal_agrees_with_the_eager_loop_on_the_card(cuda, monkeypatch):
+    """The kernel-route twin of the captured sq8 test: the qg route's traversal as one
+    launch of the traversal kernel a chunk, on the same 20k-row index, on a first call, a call
+    with other queries, after rows of the mirror are updated in place, after an append and
+    after a full upload.  Ids agree with the eager loop's on >= 99.9% of entries (the standard
+    that holds under another order of the distance sums), distances to rtol 1e-5 where they
+    agree, the steps are equal, and no call captures a graph."""
+    import collections
+
+    import ngt_tpu_torch
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.graph import search as TS
+    from ngt_tpu_torch.ops import traverse as TV
+    from ngt_tpu_torch.quant import qgraph as QG
+
+    monkeypatch.setattr(TS, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setenv(trace.SEARCH, "1")
+    rng = np.random.default_rng(21)
+    d = 32
+    x = rng.standard_normal((20000, d)).astype(np.float32)
+    q1 = x[:1024] + 0.3 * rng.standard_normal((1024, d)).astype(np.float32)
+    q2 = rng.standard_normal((1024, d)).astype(np.float32)
+    idx = ngt_tpu_torch.create(None, dimension=d, device=cuda)
+    idx.batch_insert(x[:19800], build=True)
+
+    seen = []
+    orig = TS.graph_search
+
+    def spy(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        seen.append(res)
+        return res
+
+    monkeypatch.setattr(QG, "graph_search", spy)
+
+    def both(q):
+        seen.clear()
+        trace.clear()
+        launches = TV.traverse.launches
+        gi, gd = idx.batch_search(q, size=10, epsilon=0.1)
+        recs = trace.records()
+        got = list(seen)
+        assert TV.traverse.launches - launches == len(got) == 2
+        assert sum(r.value for r in recs if r.name == "traverse.kernel_launches") == 2
+        assert sum(r.value for r in recs if r.name == "traverse.captures") == 0
+        seen.clear()
+        with _eager_loop(monkeypatch):
+            wi, wd = idx.batch_search(q, size=10, epsilon=0.1)
+        assert TV.traverse.launches - launches == 2
+        same = gi == wi
+        assert same.mean() >= 0.999
+        np.testing.assert_allclose(gd[same], wd[same], rtol=1e-5)
+        for a, b in zip(got, seen):
+            assert a.iters == b.iters
+            assert (a.ids == b.ids).float().mean().item() >= 0.999
+
+    both(q1)
+    assert idx._qg.mode == "sq8"
+    both(q2)
+    m = idx._mirror
+    idx.store._x[1:201, :d] = x[19800:]
+    m.update_rows(np.arange(1, 201), None)
+    both(q1)
+    idx.batch_insert(x[19800:], build=True)
+    both(q2)
+    m.sync_full()
+    both(q1)
+    trace.clear()
+
+
+def test_mixed_batch_sizes_take_the_kernel_on_the_card(cuda, monkeypatch):
+    """The kernel-route twin of the mixed-sizes test: batches of 1-512 queries pad to the
+    qg route's five buckets and launch the traversal kernel once each, capture nothing in
+    either round, and agree with the eager loop's ids on >= 99.9% of all entries."""
+    import collections
+
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.graph import search as TS
+    from ngt_tpu_torch.ops import traverse as TV
+
+    monkeypatch.setattr(TS, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setenv(trace.SEARCH, "1")
+    idx, x, rng = _qg_index(cuda)
+    sizes = (1, 40, 100, 200, 400, 512, 3, 33)
+    for _ in range(2):
+        trace.clear()
+        launches = TV.traverse.launches
+        got, want = [], []
+        for nq in sizes:
+            q = x[:nq] + 0.3 * rng.standard_normal((nq, 32)).astype(np.float32)
+            got.append(idx.batch_search(q, size=10, epsilon=0.1))
+            with _eager_loop(monkeypatch):
+                want.append(idx.batch_search(q, size=10, epsilon=0.1))
+        recs = trace.records()
+        assert TV.traverse.launches - launches == len(sizes)
+        assert sum(r.value for r in recs if r.name == "traverse.captures") == 0
+        gi, wi = (np.concatenate([r[0] for r in rs]) for rs in (got, want))
+        assert (gi == wi).mean() >= 0.999
+    trace.clear()
+    assert idx._qg.mode == "sq8"
+
+
+#: the traversal kernel's test shapes: the benchmark cells' searches at their widths on a
+#: smaller graph (rows n, dimension d padded to 128, block width eb of the 64 adjacency
+#: columns, the e edges read, pool width w, k, kr, epsilon, the visited table, queries b,
+#: uint8 codes or int8).  A BIGANN shard (``ShardedQG``) traverses int8 sq8 codes; the
+#: u8-exact qg route (an integral corpus, whose codes are the uint8 mirror itself) is the
+#: one that traverses uint8 blocks
+_KERNEL_SHAPES = {
+    "sift": dict(n=40000, d=128, eb=48, e=48, w=64, k=30, kr=10, eps=0.1, bits=20,
+                 exact=True, b=512, u8=False),
+    "glove": dict(n=40000, d=100, eb=48, e=24, w=240, k=120, kr=40, eps=0.02, bits=16,
+                  exact=False, b=512, u8=False),
+    "bigann": dict(n=40000, d=128, eb=48, e=48, w=64, k=30, kr=10, eps=0.1, bits=22,
+                   exact=True, b=2048, u8=False),
+    "u8_exact": dict(n=40000, d=128, eb=48, e=48, w=64, k=30, kr=10, eps=0.1, bits=20,
+                     exact=True, b=512, u8=True),
+}
+
+
+def _kernel_inputs(cuda, shape, seed=31):
+    """``graph_search``'s arguments at one ``_KERNEL_SHAPES`` entry, from the
+    smoke's generator (``chip_smoke.py::traverse_inputs``: a clustered
+    corpus and its 64-NN graph on the card with invalid rows, -1 and
+    repeated adjacency, and queries with no seed, done at the start)."""
+    import chip_smoke
+
+    sp = _KERNEL_SHAPES[shape]
+    return chip_smoke.traverse_inputs(cuda, sp, seed, n=sp["n"])
+
+
+@pytest.mark.parametrize("shape,max_iters", [
+    ("sift", 0), ("glove", 0), ("bigann", 0), ("sift", 7), ("u8_exact", 0),
+])
+def test_traversal_kernel_matches_the_step_loop_on_the_card(cuda, monkeypatch, shape,
+                                                            max_iters):
+    """The traversal kernel against the captured ``_step`` loop on the same blocks, seeds
+    and state, at SIFT's shape (int8, w 64, e 48, k 30, kr 10, exact 2^20 bits), glove's
+    (w 240, 24 edges of a 48-wide block row, the two-bit hash), a BIGANN shard's (int8,
+    exact 2^22 bits, 2,048 rows) and the u8-exact qg route's (uint8 blocks, SIFT's widths),
+    and with a ``max_iters`` cut: ids on >= 99.9% of entries,
+    distances to rtol 1e-5 where they agree, equal steps, and equal visit, distance and own
+    step counts on the rows whose ids agree.  Queries with no seed are done at the start."""
+    from ngt_tpu_torch import trace
+    from ngt_tpu_torch.graph import search as TS
+    from ngt_tpu_torch.ops import traverse as TV
+
+    monkeypatch.setenv(trace.SEARCH, "1")
+    args, kw = _kernel_inputs(cuda, shape)
+    kw.update(max_iters=max_iters)
+    launches = TV.traverse.launches
+    got = TS.graph_search(*args, **kw)
+    assert TV.traverse.launches == launches + 1
+    with monkeypatch.context() as mp:
+        mp.setattr(TS, "_kernel_route", lambda *a, **k: False)
+        want = TS.graph_search(*args, **kw)
+    assert TV.traverse.launches == launches + 1
+    trace.clear()
+    same = got.ids == want.ids
+    assert same.float().mean().item() >= 0.999
+    torch.testing.assert_close(got.dists[same], want.dists[same], rtol=1e-5, atol=0)
+    assert got.iters == want.iters > 0
+    rows = same.all(1)
+    for name in ("visit_count", "dist_count", "own_steps"):
+        assert torch.equal(getattr(got, name)[rows], getattr(want, name)[rows]), name
+    assert (got.own_steps[:5] == 0).all() and (got.ids[:5] == -1).all()
+    if max_iters:
+        assert got.iters == max_iters
+
+
+def test_traverse_smem_matches_the_kernel_layout_on_the_card(cuda):
+    """The route predicate's shared-memory count (``ops/traverse.py::smem_bytes``) is
+    the kernel's own layout at the cells' widths and around the limit."""
+    from ngt_tpu_torch.ops import _build
+    from ngt_tpu_torch.ops import traverse as TV
+
+    lib = _build.load()
+    for w, e, m in ((64, 48, 128), (240, 24, 128), (64, 48, 4480), (17, 3, 1040),
+                    (500, 256, 256)):
+        assert lib.ngt_traverse_smem(w, e, m) == TV.smem_bytes(w, e, m), (w, e, m)
+
+
+def test_traversal_kernel_two_threads_on_one_card(cuda):
+    """Two threads launch the traversal kernel on one card at once, on the
+    same shape (one cached state, taken in turns): each gets the answers,
+    counts and steps of its queries searched alone, bit for bit."""
+    import threading
+
+    from ngt_tpu_torch.graph import search as TS
+
+    args, kw = _kernel_inputs(cuda, "sift")
+    halves = [(args[3][:256], args[4][:256]), (args[3][256:], args[4][256:])]
+    alone = [TS.graph_search(*args[:3], q, sd, **kw) for q, sd in halves]
+    got, errors = [[], []], []
+    start = threading.Barrier(2)
+
+    def search(j):
+        try:
+            start.wait()
+            for _ in range(4):
+                got[j].append(TS.graph_search(*args[:3], *halves[j], **kw))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=search, args=(j,)) for j in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errors, errors
+    for want, runs in zip(alone, got):
+        assert len(runs) == 4
+        for res in runs:
+            for name in ("ids", "dists", "visit_count", "dist_count"):
+                assert _bits_equal(getattr(res, name), getattr(want, name)), name
+            assert res.iters == want.iters
 
 
 def _mirror_after_mutations(dev, integral: bool):

@@ -378,3 +378,102 @@ def test_graph_cache_keeps_the_newest_within_its_bounds(monkeypatch):
     assert list(TS._GRAPHS) == ["big"]
     TS._keep("small", Loop(1))
     assert list(TS._GRAPHS) == ["small"]
+
+
+def _route_inputs(case):
+    """``_kernel_route``'s inputs for one case: the qg route's sq8 block
+    traversal on a card (``qg``), or that with one input changed."""
+    import types
+
+    from ngt_tpu_torch.quant.pq import make_packed_scorer
+
+    e, m = {"e_over_max": (257, 128), "smem": (48, 4480), "m_not_16": (48, 100)}.get(
+        case, (48, 128))
+    x = torch.zeros((8, e * m), dtype=torch.float32 if case == "f32_block" else torch.int8)
+    nbr = torch.zeros((8, e), dtype=torch.int32)
+    kw = dict(x=x, nbr=nbr, valid=torch.ones(8, dtype=torch.bool), x_sqnorm=None,
+              metric=DistanceType.L1 if case == "l1" else DistanceType.L2,
+              scorer=make_packed_scorer(16, 16) if case == "pq4" else None,
+              block_mode=case != "row", e_max=e)
+    dev = torch.device("cpu" if case == "cpu" else "cuda")
+    queries = types.SimpleNamespace(device=dev, dtype=torch.float32, shape=(512, m))
+    t = types.SimpleNamespace(w=64, p=2 if case == "expand2" else 1,
+                              hash_bits=4 if case == "hash_bits" else 20)
+    return TS._Inputs(**kw), queries, t
+
+
+@pytest.mark.parametrize("case,kernel", [
+    ("qg", True), ("row", False), ("pq4", False), ("expand2", False), ("f32_block", False),
+    ("l1", False), ("cpu", False), ("e_over_max", False), ("smem", False),
+    ("m_not_16", False), ("hash_bits", False),
+])
+def test_kernel_route_takes_only_the_sq8_block_traversal_on_a_card(case, kernel):
+    """The traversal kernel runs the sq8 block traversal on a CUDA device
+    (int8 blocks, L2, no scorer, one expansion a step, float32 queries);
+    row mode, a pq4 scorer, ``expand`` 2, float blocks, another metric and
+    the CPU keep the torch step loop, and so do sizes past the kernel's
+    limits: 257 edges read, a 4,480-wide query whose 48-edge block row
+    overfills one warp's shared memory, a width that is not a multiple of
+    16 and a 2^4-bit visited table."""
+    assert TS._kernel_route(*_route_inputs(case)) is kernel
+
+
+def _kernel_args(case):
+    """The kernel's arguments on a 64-node toy graph (e_max 8, M 16), one
+    of them wrong for ``case``."""
+    from ngt_tpu_torch.ops import traverse as TV
+
+    q = torch.zeros((4, 16), dtype=torch.float32)
+    t = TS._Loop(q, 16, 8, 4, 1, 10, True, 0.1, False)
+    t.start(q, None, torch.zeros((4, 16)), torch.zeros((4, 16), dtype=torch.int32), TS.INF)
+    x = torch.zeros((64, 8 * 16), dtype=torch.float32 if case == "dtype" else torch.int8)
+    if case == "width":
+        x = torch.zeros((64, 7 * 16), dtype=torch.int8)
+    nbr = torch.zeros((64, 8), dtype=torch.int64 if case == "nbr_dtype" else torch.int32)
+    args = (x, nbr, torch.ones(64, dtype=torch.bool), t.queries, t.radius0, t.pool_d,
+            t.pool_i, t.pool_e, t.visited, t.done, t.vc, t.dc, t.own, t.steps)
+    kw = dict(e_max=8, k=8, kr=4, eps_coeff=1.1, hash_bits=10, exact_hash=True, max_iters=5)
+    return TV.traverse, args, kw
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("dtype", TypeError, "int8 or uint8"),
+    ("width", ValueError, "e_max x M"),
+    ("nbr_dtype", TypeError, "nbr must be int32"),
+    ("cpu", ValueError, "CUDA device"),
+])
+def test_traverse_wrapper_raises_on_what_the_kernel_does_not_take(case, exc, match):
+    """The wrapper checks types and shapes before anything launches: float
+    block rows, a block row that is not e_max x M codes wide and int64
+    adjacency raise; inputs it takes, on the CPU, raise for the device."""
+    fn, args, kw = _kernel_args(case)
+    with pytest.raises(exc, match=match):
+        fn(*args, **kw)
+
+
+@pytest.mark.parametrize("mode,regime,expand,max_iters,seeds_case", [
+    ("row", "exact", 1, 0, "normal"),
+    ("block", "lossy", 1, 0, "normal"),
+    ("block", "exact", 2, 0, "normal"),
+    ("block", "exact", 1, 13, "normal"),    # the limit cuts queries not done
+    ("block", "lossy", 1, 0, "spread"),     # queries done at very different steps
+    ("row", "exact", 1, 0, "empty"),        # done at the seeds
+])
+def test_steps_are_the_most_steps_of_any_query(graph_state, monkeypatch, mode, regime,
+                                               expand, max_iters, seeds_case):
+    """The loop's step count is the largest of the queries' own steps: what
+    lets the traversal kernel, where each query steps to its own done,
+    report the lockstep loop's count."""
+    from ngt_tpu_torch import trace
+
+    monkeypatch.setenv(trace.SEARCH, "1")
+    args, seeds, extra = _replay_inputs(graph_state, mode, seeds_case)
+    bits, exact = TS.wrap_hash_bits(args[0].shape[0]) if regime == "exact" else (10, False)
+    res = TS.graph_search(*args, seeds, metric=DistanceType.L2, k=20, epsilon=0.1, width=64,
+                          hash_bits=bits, exact_hash=exact, expand=expand,
+                          max_iters=max_iters, **extra)
+    assert res.iters == int(res.own_steps.max())
+    if max_iters:
+        assert res.iters == max_iters
+    if seeds_case == "empty":
+        assert res.iters == 0
